@@ -1,0 +1,89 @@
+"""Dtype policy, complex helpers and the routing of the dense solves.
+
+torch has complex dtypes on the CPU and on CUDA, so the JAX package's
+real-pair layer (``metalens_tpu/solver/cpx.py``'s ``C`` with Karatsuba
+matmuls) has no counterpart here: the port computes on complex tensors.
+
+Dtype policy, in one place: complex128 on the CPU (parity with the JAX
+package in float64), complex64 on CUDA (where the kernels run; complex128 on
+CUDA is refused by the kernels).
+
+Every hot-path dense solve goes through :func:`solve`, the explicit inverse
+applied by a matrix product (``pallas_inv.solve_pallas``'s contract): the
+inverse is the CUDA kernel for a CUDA tensor and ``torch.linalg.inv`` for a
+CPU tensor (:mod:`.inv`).  It needs well-conditioned leading blocks;
+:func:`solve_embed` is the pivoted solve for matrices outside that contract
+(absorbing eps).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import inv as _inv
+
+
+def complex_dtype(device, dtype=None) -> torch.dtype:
+    """The working complex dtype: ``dtype`` if given (complex64 or
+    complex128), else complex128 on the CPU and complex64 on CUDA."""
+    device = torch.device(device)
+    if dtype is None:
+        return torch.complex64 if device.type == "cuda" else torch.complex128
+    if dtype not in (torch.complex64, torch.complex128):
+        raise TypeError(f"working dtype must be complex64 or complex128, "
+                        f"got {dtype}")
+    return dtype
+
+
+def real_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The real dtype matching a complex (or real) working dtype."""
+    return {torch.complex64: torch.float32, torch.complex128: torch.float64,
+            torch.float32: torch.float32, torch.float64: torch.float64}[dtype]
+
+
+def to_complex(dtype: torch.dtype) -> torch.dtype:
+    return {torch.float32: torch.complex64, torch.float64: torch.complex128,
+            torch.complex64: torch.complex64,
+            torch.complex128: torch.complex128}[dtype]
+
+
+def eye(n: int, like: torch.Tensor) -> torch.Tensor:
+    """n x n complex identity in ``like``'s complex dtype and device."""
+    return torch.eye(n, dtype=to_complex(like.dtype), device=like.device)
+
+
+def scalar(z, like: torch.Tensor) -> torch.Tensor:
+    """A python number (or 0-d tensor) as a 0-d complex tensor in
+    ``like``'s complex dtype and device."""
+    return torch.as_tensor(z, dtype=to_complex(like.dtype)).to(like.device)
+
+
+def csqrt_posim(c: torch.Tensor) -> torch.Tensor:
+    """Square root on the Im >= 0 branch: +sqrt for real positive input,
+    +i sqrt|.| for real negative (evanescent decay along +z).  Same formula
+    as ``metalens_tpu/solver/cpx.py:csqrt_posim``."""
+    re, im = c.real, c.imag
+    r = torch.sqrt(re * re + im * im)
+    out_re = torch.sqrt(torch.clamp((r + re) / 2, min=0.0))
+    out_im = torch.sqrt(torch.clamp((r - re) / 2, min=0.0))
+    out_re = torch.where(im < 0, -out_re, out_re)
+    return torch.complex(out_re, out_im)
+
+
+def inverse(A: torch.Tensor) -> torch.Tensor:
+    """Explicit inverse of a batch of well-conditioned complex matrices,
+    routed by device (see :mod:`.inv`): ``solve(A, I)`` without the
+    product by the identity."""
+    return _inv.inv(A.contiguous())
+
+
+def solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve A X = B for a batch of well-conditioned complex A as
+    inv(A) @ B."""
+    return inverse(A) @ B
+
+
+def solve_embed(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Pivoted LU solve for general complex A (absorbing eps, where the
+    unpivoted contract of :func:`solve` does not hold)."""
+    return torch.linalg.solve(A, B)
