@@ -9,17 +9,20 @@ import torch
 
 from metalens_tpu import engine as jengine
 from metalens_tpu.grating import Grating as JGrating
-from metalens_tpu.solver.fom import FomTerm as JFomTerm
+from metalens_tpu.solver.fom import DEFAULT_FOM_TERMS as JDEFAULT, \
+    FomTerm as JFomTerm
 from metalens_tpu.units import nm
 from metalens_tpu_torch import Grating as TGrating, engine as tengine
 from metalens_tpu_torch.convert import grating_from_arrays, \
     grating_from_reference
-from metalens_tpu_torch.solver.fom import FomTerm as TFomTerm
+from metalens_tpu_torch.solver.fom import DEFAULT_FOM_TERMS as TDEFAULT, \
+    FomTerm as TFomTerm
 
 torch.set_num_threads(2)
 
 NUMG = 15
 XY_NM_DEG = np.array([[-215., 2., 144., 111., 0.], [196., -8., 100., 130., 6.]])
+TERMS = [(580 * nm, 1.0, -1, True), (450 * nm, 0.5, 0, False)]
 
 
 def _jax_grating():
@@ -27,33 +30,43 @@ def _jax_grating():
                     cyl_height=550 * nm, xyrra_list_in_nm_deg=XY_NM_DEG)
 
 
-def test_fom_of_grating_matches_jax():
+@pytest.fixture(scope="module")
+def jax_foms():
+    """The JAX engine's FOM of the cell (row 0) and of two perturbed
+    copies, from one compiled batch program that both parity tests share,
+    with an in-phase and a power-only term."""
     jg = _jax_grating()
+    rng = np.random.default_rng(0)
+    batch = np.stack([jg.xyrra_list] + [
+        jg.xyrra_list + rng.normal(scale=3 * nm, size=jg.xyrra_list.shape)
+        * [1, 1, 1, 1, 0] for _ in range(2)])
+    want = np.asarray(jengine.fom_batch_fn(
+        jg, 580 * nm, NUMG, [JFomTerm(*t) for t in TERMS])(batch))
+    return jg, batch, want
+
+
+def test_fom_of_grating_matches_jax(jax_foms):
+    jg, _, want = jax_foms
     tg = grating_from_reference(jg)
-    want = jengine.fom_of_grating(jg, target_wavelength=580 * nm, numG=NUMG)
-    got = tengine.fom_of_grating(tg, target_wavelength=580 * nm, numG=NUMG)
-    assert abs(got - want) < 1e-10
-    assert got == tg.fom(target_wavelength=580 * nm, numG=NUMG)
-    assert tengine.fom_of_gratings([tg, tg.copy()], 580 * nm, NUMG) \
-        == [got, got]
+    terms = [TFomTerm(*t) for t in TERMS]
+    got = tengine.fom_of_grating(tg, target_wavelength=580 * nm, numG=NUMG,
+                                 terms=terms)
+    assert abs(got - want[0]) < 1e-10
+    assert got == tg.fom(target_wavelength=580 * nm, numG=NUMG, terms=terms)
+    assert tengine.fom_of_gratings([tg, tg.copy()], 580 * nm, NUMG,
+                                   terms) == [got, got]
+    fields = ("wavelength", "weight", "target_order", "inphase")
+    assert [[getattr(t, f) for f in fields] for t in TDEFAULT] \
+        == [[getattr(t, f) for f in fields] for t in JDEFAULT]
 
 
-def test_fom_batch_fn_matches_jax():
-    jg = _jax_grating()
+def test_fom_batch_fn_matches_jax(jax_foms):
+    jg, batch, want = jax_foms
     tg = grating_from_arrays(jg.lateral_period, jg.grating_period,
                              jg.cyl_height, jg.n_glass, jg.n_tio2,
                              jg.xyrra_list)
-    rng = np.random.default_rng(0)
-    batch = np.stack([jg.xyrra_list + rng.normal(scale=3 * nm,
-                                                 size=jg.xyrra_list.shape)
-                      * [1, 1, 1, 1, 0] for _ in range(3)])
-    terms_j = [JFomTerm(580 * nm, 1.0, -1, True), JFomTerm(450 * nm, 0.5, 0,
-                                                           False)]
-    terms_t = [TFomTerm(580 * nm, 1.0, -1, True), TFomTerm(450 * nm, 0.5, 0,
-                                                           False)]
-    want = np.asarray(jengine.fom_batch_fn(jg, 580 * nm, NUMG,
-                                           terms_j)(batch))
-    got = tengine.fom_batch_fn(tg, 580 * nm, NUMG, terms_t)(batch)
+    got = tengine.fom_batch_fn(tg, 580 * nm, NUMG,
+                               [TFomTerm(*t) for t in TERMS])(batch)
     assert got.dtype == torch.float64 and got.shape == (3,)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-10)
 

@@ -3,6 +3,7 @@ metalens_tpu at float64): the J1 fit, the ellipse structure Toeplitz, the
 NV blocks and the plane-wave basis blocks, on the same numpy inputs."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -37,7 +38,8 @@ def test_j1_over_x_from_sq(small_arg_only):
     hi = 7.9 if small_arg_only else 30.0
     x2 = np.concatenate([[0.0, 1e-13, 1e-6], rng.uniform(0, hi, 500) ** 2])
     got = tspecial.j1_over_x_from_sq(torch.as_tensor(x2), small_arg_only)
-    want = jspecial.j1_over_x_from_sq(jnp.asarray(x2), small_arg_only)
+    want = jax.jit(jspecial.j1_over_x_from_sq, static_argnums=1)(
+        jnp.asarray(x2), small_arg_only)
     assert got.dtype == torch.float64
     assert _rel(got.numpy(), want) < TOL
 
@@ -53,14 +55,15 @@ def test_structure_toeplitz_traced_and_static():
         torch.as_tensor(xy))
     S_s, z_s = teps.ellipse_structure_toeplitz(orders, LX, LY,
                                                torch.as_tensor(xy))
+    S_j, z_j = jax.jit(jax.vmap(
+        lambda x: jeps.ellipse_structure_toeplitz_traced(
+            jnp.asarray(mx), jnp.asarray(my), Dx, Dy, LX, LY, x)))(
+        jnp.asarray(xy))
     for b in range(3):
-        S_j, z_j = jeps.ellipse_structure_toeplitz_traced(
-            jnp.asarray(mx), jnp.asarray(my), Dx, Dy, LX, LY,
-            jnp.asarray(xy[b]))
-        assert _rel(S_t[b].numpy(), jcpx.to_np(S_j)) < TOL
-        assert _rel(S_s[b].numpy(), jcpx.to_np(S_j)) < TOL
-        np.testing.assert_array_equal(z_t.numpy(), np.asarray(z_j))
-        np.testing.assert_array_equal(z_s.numpy(), np.asarray(z_j))
+        assert _rel(S_t[b].numpy(), jcpx.to_np(S_j)[b]) < TOL
+        assert _rel(S_s[b].numpy(), jcpx.to_np(S_j)[b]) < TOL
+        np.testing.assert_array_equal(z_t.numpy(), np.asarray(z_j)[b])
+        np.testing.assert_array_equal(z_s.numpy(), np.asarray(z_j)[b])
     with pytest.raises(ValueError, match="dense grid"):
         teps.traced_gather_idx(torch.as_tensor(mx), torch.as_tensor(my), 1, 1)
 
@@ -76,11 +79,12 @@ def test_nv_blocks(eps_pillar, hermitian):
     orders = jord.select_orders(LX, LY, 17)
     got = tfff.fff_eps_blocks(orders, LX, LY, torch.as_tensor(xy),
                               eps_pillar, hermitian=hermitian)
+    want = jax.jit(jax.vmap(lambda x: jfff.fff_eps_blocks(
+        orders, LX, LY, x, eps_pillar, hermitian=hermitian)))(
+        jnp.asarray(xy))
     for b in range(2):
-        want = jfff.fff_eps_blocks(orders, LX, LY, jnp.asarray(xy[b]),
-                                   eps_pillar, hermitian=hermitian)
         for g, w in zip(got, want):
-            assert _rel(g[b].numpy(), jcpx.to_np(w)) < TOL
+            assert _rel(g[b].numpy(), jcpx.to_np(w)[b]) < TOL
 
 
 def test_nv_projector_traced():
@@ -91,12 +95,12 @@ def test_nv_projector_traced():
     got = tfff.normal_projector_toeplitz_traced(
         torch.as_tensor(mx), torch.as_tensor(my), 16, 8, LX, LY,
         torch.as_tensor(xy), R=32)
+    want = jax.jit(jax.vmap(lambda x: jfff.normal_projector_toeplitz_traced(
+        jnp.asarray(mx), jnp.asarray(my), 16, 8, LX, LY, x, R=32)))(
+        jnp.asarray(xy))
     for b in range(2):
-        want = jfff.normal_projector_toeplitz_traced(
-            jnp.asarray(mx), jnp.asarray(my), 16, 8, LX, LY,
-            jnp.asarray(xy[b]), R=32)
         for g, w in zip(got, want):
-            assert _rel(g[b].numpy(), jcpx.to_np(w)) < TOL
+            assert _rel(g[b].numpy(), jcpx.to_np(w)[b]) < TOL
 
 
 @pytest.mark.parametrize("eps", [1.0, 1.459 ** 2, 1.5 + 1.0j])

@@ -5,6 +5,7 @@ routing (the CUDA kernel itself is held to the plain version in
 tests/test_torch_cuda.py)."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -20,16 +21,21 @@ torch.set_num_threads(2)
 
 @pytest.fixture(scope="module")
 def captured(request):
-    """One matrix per distinct size from the solves cell_smatrix issues at
-    numG = 25 (NV on): the E and <<1/eps>> inverses at N and the slab,
-    doubling and conversion-star solves at 2N."""
+    """The matrices of every solve cell_amplitudes issues at numG = 25
+    (NV on): the E and <<1/eps>> inverses at N and the slab, doubling and
+    conversion-star solves at 2N.  The solve runs jitted (one compile
+    instead of an eager dispatch per op); a debug callback records each
+    matrix as it is solved."""
     mp = pytest.MonkeyPatch()
     request.addfinalizer(mp.undo)
     mats = []
     orig = jcpx.solve
 
+    def record(re, im):
+        mats.append(np.asarray(re) + 1j * np.asarray(im))
+
     def capturing(A, B):
-        mats.append(jcpx.to_np(A))
+        jax.debug.callback(record, A.re, A.im)
         return orig(A, B)
 
     mp.setattr(jcpx, "solve", capturing)
@@ -40,31 +46,36 @@ def captured(request):
     xyrra = jnp.asarray(np.asarray(
         [[-215., 2., 144., 111., 0.], [196., -8., 100., 130., 0.1]])
         * [nm, nm, nm, nm, 1.0])
-    S, _, _ = jrcwa.cell_smatrix(orders, xyrra, LX, LY, H, 2.372 ** 2,
-                                 1.459 ** 2, LAM, 0.38, 0.1, n_slabs=ns,
-                                 taylor_terms=taylor, fff=True)
-    np.asarray(S.s11.re)
+    i0 = jord.order_index(orders, 0, 0)
+    c = np.zeros((50, 2))
+    c[i0, 0] = c[i0 + 25, 1] = 1.0
+    ampf = jax.jit(lambda x: jrcwa.cell_amplitudes(
+        orders, x, LX, LY, H, 2.372 ** 2, 1.459 ** 2, LAM, 0.38, 0.1,
+        jnp.asarray(c), n_slabs=ns, taylor_terms=taylor, fff=True)[0].re)
+    np.asarray(ampf(xyrra))
+    jax.effects_barrier()
     mp.undo()
     assert len(mats) >= 5
     return mats
 
 
 def test_reference_matches_blockrec_f64(captured):
+    blockrec = jax.jit(jcpx.inv_blockrec)
     for A in captured:
         got = tinv.inv(torch.as_tensor(A)[None])[0].numpy()
-        want = jcpx.to_np(jcpx.inv_blockrec(jcpx.from_np(A)))
+        want = jcpx.to_np(blockrec(jcpx.from_np(A)))
         assert np.abs(got - want).max() / np.abs(want).max() < 1e-10
 
 
 def test_reference_matches_pallas_interpret_f32(captured):
-    sizes = {}
-    for A in captured:
-        sizes.setdefault(A.shape[0], A)      # one per size: interpret is slow
-    for A in sizes.values():
-        A32 = A.astype(np.complex64)
-        got = tinv.inv(torch.as_tensor(A32)[None])[0].numpy()
-        want = jcpx.to_np(inv_pallas(jcpx.from_np(A32), True))
-        assert np.abs(got - want).max() / np.abs(want).max() < 5e-5
+    """At 2N, the size of five of the seven solves of an NV cell (one
+    matrix: interpret mode is slow)."""
+    n = 2 * min(a.shape[0] for a in captured)
+    A = next(a for a in captured if a.shape[0] == n)
+    A32 = A.astype(np.complex64)
+    got = tinv.inv(torch.as_tensor(A32)[None])[0].numpy()
+    want = jcpx.to_np(inv_pallas(jcpx.from_np(A32), True))
+    assert np.abs(got - want).max() / np.abs(want).max() < 5e-5
 
 
 def test_solve_routes_cpu_to_reference():

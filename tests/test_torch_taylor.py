@@ -5,6 +5,8 @@ interpret mode) at float32, and the CPU routing (the CUDA kernel itself is
 held to the plain version in tests/test_torch_cuda.py)."""
 
 import numpy as np
+import jax
+import jax.numpy as jnp
 import pytest
 import torch
 
@@ -49,12 +51,13 @@ def test_reference_matches_pallas_interpret_f32_batched_t():
     ts = np.array([0.7, 1.1, 1.4], np.float32)
     got = ttay.taylor_factors(torch.as_tensor(F), torch.as_tensor(G),
                               torch.as_tensor(ts), terms)
+    want = jax.jit(jax.vmap(
+        lambda f, g, t: jpt.taylor_factors(f, g, t, terms, True)))(
+        jcpx.from_np(F), jcpx.from_np(G), jnp.asarray(ts))
     for b in range(3):
-        want = jpt.taylor_factors(jcpx.from_np(F[b]), jcpx.from_np(G[b]),
-                                  float(ts[b]), terms, True)
         for g, w in zip(got, want):
             assert g.dtype == torch.complex64
-            assert _rel(g[b].numpy(), jcpx.to_np(w)) < 2e-5
+            assert _rel(g[b].numpy(), jcpx.to_np(w)[b]) < 2e-5
 
 
 def test_ps_split_and_coeff_table():
