@@ -7,15 +7,19 @@ main path gives it, drives the main path -- the unit-cell RCWA solve at the
 bench cell (numG = 50, NV on, B = 1024 cells, complex64) and the FOM entry
 points -- and checks the results against the committed float64 truth, the
 path with the plain versions in place of the kernels, and CPU complex128
-runs.  It also times the path with the kernels against the path with the
-plain versions, in turns, at numG = 50 and numG = 100, and prints the
-torch.profiler device time by kernel of each.
+runs.  It times each kernel against its plain version (for the inverse,
+``torch.linalg.inv``: the library call) in turns, at every size the main
+path gives it at numG = 50 and numG = 100, beside the least time the card
+could take for the same work (its bound).  It also times the path with the
+kernels against the path with the plain versions, in turns, at both numG,
+and prints the torch.profiler device time by kernel of each.
 
     python3 chip_smoke.py
 
 Every phase is fatal: a failed check exits nonzero.  The last two lines of
 standard output are a JSON object describing each kernel (launches in the
-main-path run, error against the plain version, times) and
+main-path run, error against the plain version, times and bound at the main
+path's bench size, and the same per size under ``sizes``) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits nonzero
 before printing any result.  Imports nothing of JAX.
 """
@@ -27,6 +31,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -40,6 +45,8 @@ TOL_GUARD = 2e-3      # bench.py's accuracy-guard bound vs the f64 truth
 TOL_INV = 1e-4        # inverse kernel vs plain, per matrix, max-normalized
 TOL_TAYLOR = 2e-5     # the bound of tests/test_pallas_taylor.py
 BATCH = 1024
+PEAK_F32 = 67e12          # flop/s, f32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
 
 
 def require(ok, what):
@@ -53,6 +60,15 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     require(out.returncode == 0, f"nvidia-smi: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def bound_ms(flops, nbytes):
+    """The least time the card could take for the work: the larger of the
+    flops at the f32 peak outside the tensor cores and the bytes at the
+    memory rate (H100 SXM at 700 W), and which of the two it is."""
+    t_ops, t_bytes = flops / PEAK_F32, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def cuda_ms(fn, iters):
@@ -201,7 +217,10 @@ def main():
     results = {}
 
     # ---- phase 1: build the kernels from the checkout's sources --------
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(_cuda.build, ("cinv", "taylor")))
     _cuda.load("cinv", inv._SIGNATURES)
     _cuda.load("taylor", taylor._SIGNATURES)
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s "
@@ -236,9 +255,11 @@ def main():
     c_inc = torch.as_tensor(incidence(orders, numG))
 
     # ---- phase 2: inverse kernel vs inv_reference (complex64) ----------
+    # random matrices at the main path's sizes and at the edges between the
+    # routes (registers to n = 128, a 2-block cluster to 200, 4 blocks above)
     gen = torch.Generator(device="cpu").manual_seed(1)
     err_abs = 0.0
-    for n in (50, 100, 200):
+    for n in (50, 100, 128, 129, 200, 256):
         noise = torch.randn(64, n, n, 2, generator=gen)
         A = (torch.eye(n) + 0.4 * torch.view_as_complex(noise) / math.sqrt(n)
              ).to(torch.complex64).to(dev)
@@ -251,11 +272,14 @@ def main():
         require(resid <= 5e-5, f"inverse residual {resid} at n={n}")
     # every inverse the main path takes, at its own batch: per NV cell, E
     # and <<1/eps>> at N; the slab, each doubling, the inner and the outer
-    # conversion star at 2N
+    # conversion star at 2N.  One batch of each size is timed against
+    # torch.linalg.inv (the plain version, and the library call) in turns,
+    # and the timed result is held to the plain version too.
     expected = 5 + int(math.log2(ns))
     worst = 0.0
-    for label, run, n_s, stride in (("numG=50", main_path, ns, 1),
-                                    ("numG=100", path100, ns100, 4)):
+    inv_sizes = []
+    for label, run, n_s, stride, G in (("numG=50", main_path, ns, 1, 50),
+                                       ("numG=100", path100, ns100, 4, 100)):
         caps = capture(inv, "inv", run)
         require(len(caps) == 5 + int(math.log2(n_s)),
                 f"{label}: expected {5 + int(math.log2(n_s))} inverses per "
@@ -273,30 +297,43 @@ def main():
                   f"(kernel vs complex128 {rel64:.3e})")
         if run is main_path:
             require(len(caps) == expected, "inverse count")
-            A100 = next(a for (a,) in caps if a.shape[-1] == 2 * numG)
-        del caps, W, R
+        # E at N, the slab matrices at 2N
+        for n in (G, 2 * G):
+            A = next(a for (a,) in caps if a.shape[-1] == n)
+            B = A.shape[0]
+            held = {}
+            k_ms, p_ms = ab_ms(lambda: inv.inv_reference(A),
+                               lambda: held.update(W=inv.inv_cuda(A)), 10)
+            rel, _ = rel_err(held["W"], inv.inv_reference(A))
+            b_ms, b_by = bound_ms(8 * n ** 3 * B, 2 * 8 * n * n * B)
+            print(f"phase 2 time {label} B={B} n={n} (main-path matrices): "
+                  f"kernel {k_ms:.3f} ms, torch.linalg.inv {p_ms:.3f} ms; "
+                  f"bound {b_ms:.4f} ms ({b_by}), kernel at "
+                  f"{100 * b_ms / k_ms:.1f}% of it; timed result rel err vs "
+                  f"plain {rel:.3e}")
+            require(rel <= TOL_INV, f"timed inverse vs plain: {rel}")
+            inv_sizes.append(dict(numG=G, n=n, B=B, ms=k_ms, plain_ms=p_ms,
+                                  library_ms=p_ms, bound_ms=b_ms,
+                                  bound_by=b_by))
+            del held
+        del caps, W, R, A
     require(worst <= TOL_INV, f"inverse vs plain on the main path: {worst}")
-    # timed on the main path's own slab matrices (B = 1024, n = 100); the
-    # result of the timed kernel calls is held to the plain version too
-    held = {}
-    k_ms, p_ms = ab_ms(lambda: inv.inv_reference(A100),
-                       lambda: held.update(W=inv.inv_cuda(A100)), 20)
-    rel, _ = rel_err(held["W"], inv.inv_reference(A100))
-    print(f"phase 2 time B={A100.shape[0]} n={A100.shape[-1]} (main-path "
-          f"slab matrices): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; "
-          f"timed result rel err vs plain {rel:.3e}")
-    require(rel <= TOL_INV, f"timed inverse vs plain: {rel}")
+    main_inv = next(d for d in inv_sizes if d["numG"] == 50 and d["n"] == 100)
     results["cinv"] = dict(
         route="cuda", source="metalens_tpu_torch/csrc/cinv.cu",
         replaces="metalens_tpu/solver/pallas_inv.py:175",
-        max_abs_err=err_abs, ms=k_ms, plain_ms=p_ms)
-    del A100, held
+        max_abs_err=err_abs,
+        **{k: main_inv[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+        sizes=inv_sizes)
 
-    # ---- phase 3: Taylor kernel vs taylor_factors_reference ------------
+    # ---- phase 3: Taylor kernels vs their plain versions ---------------
     # F and G of the main path's own call at numG = 50 (B = 1024) and
-    # numG = 100 (B = 256); t varies along the batch
-    err_abs = 0.0
-    times = {}
+    # numG = 100 (B = 256); t varies along the batch.  The whole call (the
+    # GEMM kernel and the chunk pass) against taylor_factors_reference, and
+    # the chunk pass alone against chunk_sums_reference on Y0's powers.
+    err_abs = chunk_err_abs = 0.0
+    tay_sizes, chunk_sizes = [], []
     for run in (main_path, path100):
         (F, Gm, t_path, n_terms), = capture(taylor, "taylor_factors", run)
         B, n = F.shape[0], F.shape[-1]
@@ -310,25 +347,74 @@ def main():
             print(f"phase 3 n={n} B={B} terms={n_terms} {name}: "
                   f"max-normalized err {rel:.3e}")
             require(rel <= TOL_TAYLOR, f"Taylor {name} at n={n}: {rel}")
+        del got, want
         coeffs = taylor.coeff_table(t, n_terms, B, dev)
         td = t.to(dev)
-        times[n] = ab_ms(
+        k_ms, p_ms = ab_ms(
             lambda: taylor.taylor_factors_reference(F, Gm, td, n_terms),
             lambda: taylor.taylor_factors_cuda(F, Gm, coeffs, n_terms), 5)
-        print(f"phase 3 time B={B} n={n} terms={n_terms}: kernel "
-              f"{times[n][0]:.3f} ms, plain {times[n][1]:.3f} ms")
-        del F, Gm, got, want
+        s, r = taylor._ps_split(n_terms)
+        products = 1 + (s - 1) + 3 * (r - 1) + 4
+        # coefficient x power terms of the chunks (4 flops an entry), and
+        # the Horner epilogue adds (2 flops an entry)
+        power_terms = sum(1 for p in range(3) for k in range(n_terms + 1)
+                          if k % s)
+        flops = (products * 8 * n ** 3
+                 + (4 * power_terms + 2 * 3 * (r - 1)) * n * n) * B
+        nbytes = 6 * 8 * n * n * B + coeffs.numel() * 4
+        b_ms, b_by = bound_ms(flops, nbytes)
+        print(f"phase 3 time B={B} n={n} terms={n_terms}: kernels "
+              f"{k_ms:.3f} ms ({products} GEMM launches + 1 chunk pass), "
+              f"plain {p_ms:.3f} ms; bound {b_ms:.3f} ms ({b_by}, "
+              f"{flops:.3e} flop), kernels at {100 * b_ms / k_ms:.1f}% of it")
+        tay_sizes.append(dict(n=n, B=B, terms=n_terms, ms=k_ms, plain_ms=p_ms,
+                              library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        # the chunk pass alone, on the powers of this F G
+        pows = torch.empty((B, s, n, n), dtype=F.dtype, device=dev)
+        pows[:, 0] = F @ Gm
+        for m in range(1, s):
+            pows[:, m] = pows[:, m - 1] @ pows[:, 0]
+        ck = torch.empty((B, 3, r, n, n), dtype=F.dtype, device=dev)
+        cp = torch.empty_like(ck)
+        c_ms, cp_ms = ab_ms(
+            lambda: taylor.chunk_sums_reference(pows, coeffs, n_terms, s, r,
+                                                cp),
+            lambda: taylor.chunk_sums_cuda(pows, coeffs, n_terms, s, r, ck),
+            10)
+        rel = ((ck - cp).abs().amax((-2, -1))
+               / cp.abs().amax((-2, -1))).max().item()
+        chunk_err_abs = max(chunk_err_abs, (ck - cp).abs().max().item())
+        require(rel <= TOL_TAYLOR, f"chunk pass at n={n}: {rel}")
+        cb_ms, cb_by = bound_ms(4 * power_terms * n * n * B,
+                                (s - 1 + 3 * r) * 8 * n * n * B
+                                + coeffs.numel() * 4)
+        print(f"phase 3 chunk pass B={B} n={n} s={s} r={r}: kernel "
+              f"{c_ms:.3f} ms, plain {cp_ms:.3f} ms; bound {cb_ms:.4f} ms "
+              f"({cb_by}), kernel at {100 * cb_ms / c_ms:.1f}% of it; "
+              f"worst per-chunk max-normalized err {rel:.3e}")
+        chunk_sizes.append(dict(n=n, B=B, terms=n_terms, ms=c_ms,
+                                plain_ms=cp_ms, library_ms=None,
+                                bound_ms=cb_ms, bound_by=cb_by))
+        del F, Gm, pows, ck, cp
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     results["taylor"] = dict(
         route="cuda", source="metalens_tpu_torch/csrc/taylor.cu",
         replaces="metalens_tpu/solver/pallas_taylor.py:96",
-        max_abs_err=err_abs, ms=times[100][0], plain_ms=times[100][1])
+        entry="cgemm_ps_c64 (times: the whole Taylor call)",
+        max_abs_err=err_abs, **{k: tay_sizes[0][k] for k in keys},
+        sizes=tay_sizes)
+    results["taylor_chunks"] = dict(
+        route="cuda", source="metalens_tpu_torch/csrc/taylor.cu",
+        replaces="metalens_tpu/solver/pallas_taylor.py:96",
+        entry="ps_chunks_c64", max_abs_err=chunk_err_abs,
+        **{k: chunk_sizes[0][k] for k in keys}, sizes=chunk_sizes)
 
     # ---- phase 4: the main path (bench cell, B=1024, complex64) --------
-    inv.launches = 0
-    taylor.launches = 0
+    inv.launches = taylor.launches = taylor.chunk_launches = 0
     ampf, ampr, _, _ = main_path()
     torch.cuda.synchronize()
-    launches = {"cinv": inv.launches, "taylor": taylor.launches}
+    launches = {"cinv": inv.launches, "taylor": taylor.launches,
+                "taylor_chunks": taylor.chunk_launches}
     print(f"phase 4 main path numG={numG} B={BATCH} schedule=({ns},{terms}): "
           f"launches {launches}")
     require(all(v > 0 for v in launches.values()),
@@ -368,12 +454,11 @@ def main():
     modes = {"kernels": {}, "plain": dict(inverse=True, taylor_factors=True),
              "plain inverse only": dict(inverse=True, taylor_factors=False),
              "plain Taylor only": dict(inverse=False, taylor_factors=True)}
-    turns = {50: ("plain", "kernels", "plain inverse only",
-                  "plain Taylor only", "kernels", "plain"),
-             100: ("plain", "kernels", "kernels", "plain")}
+    turns = ("plain", "kernels", "plain inverse only", "plain Taylor only",
+             "kernels", "plain")
     e2e = {}
     for G, run, B in ((50, main_path, BATCH), (100, path100, BATCH // 4)):
-        for mode in turns[G]:
+        for mode in turns:
             with (plain_versions(**modes[mode]) if modes[mode]
                   else contextlib.nullcontext()):
                 ms = batch_ms(run)
@@ -431,9 +516,10 @@ def main():
     g = Grating(lateral_period=LY, grating_period=LX, cyl_height=H,
                 xyrra_list_in_nm_deg=BASE * [1 / NM, 1 / NM, 1 / NM, 1 / NM,
                                              180 / np.pi])
-    inv.launches = taylor.launches = 0
-    f_gpu = g.fom(target_wavelength=LAM, numG=numG, device="cuda")
-    require(inv.launches > 0 and taylor.launches > 0,
+    inv.launches = taylor.launches = taylor.chunk_launches = 0
+    f_gpu = g.fom(target_wavelength=LAM, numG=numG)
+    require(inv.launches > 0 and taylor.launches > 0
+            and taylor.chunk_launches > 0,
             "Grating.fom on CUDA launched no kernel")
     f_cpu = g.fom(target_wavelength=LAM, numG=numG, device="cpu")
     print(f"phase 5 Grating.fom numG={numG}: cuda {f_gpu:.6f}, "
@@ -442,7 +528,7 @@ def main():
     cand = np.stack([g.xyrra_list + rng.normal(scale=3 * NM,
                                                size=g.xyrra_list.shape)
                      * [1, 1, 1, 1, 0] for _ in range(20)])
-    fb_gpu = fom_batch_fn(g, LAM, numG, device="cuda")(cand)
+    fb_gpu = fom_batch_fn(g, LAM, numG)(cand)
     fb_cpu = fom_batch_fn(g, LAM, numG, device="cpu")(cand)
     require(fb_gpu.dtype == torch.float32 and fb_gpu.shape == (20,),
             f"fom_batch_fn {fb_gpu.dtype} {tuple(fb_gpu.shape)}")

@@ -6,7 +6,9 @@ evaluation of the multi-wavelength FOM for a batch of cell geometries,
 sharing the wavelength-independent structure factor (and NV projector)
 across the terms.  Both polarizations come out of one solve per term.
 
-Every entry point takes ``device=`` (default the CPU) and ``dtype=`` (the
+Every entry point takes ``device=`` (default ``"cuda"``, where the
+hand-written kernels run; it raises when torch has no CUDA device, and
+``device="cpu"`` asks for the plain PyTorch versions) and ``dtype=`` (the
 complex working dtype; default complex128 on the CPU, complex64 on CUDA).
 """
 
@@ -183,6 +185,17 @@ def _fom_eval(xyrra, mx, my, i0, tgt, Lx, Ly, h, eps_p, eps_g, lam, ux,
     return total / wsum
 
 
+def _device(device) -> torch.device:
+    """The entry points' device; CUDA must exist when it is asked for (the
+    default), so that no call silently runs on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the entry points run on the GPU "
+                           "by default; pass device='cpu' for the plain "
+                           "PyTorch versions")
+    return device
+
+
 def _order_tensors(orders, device):
     o = np.asarray(orders)
     return (torch.as_tensor(o[:, 0], dtype=torch.long, device=device),
@@ -193,11 +206,11 @@ def _order_tensors(orders, device):
 def fom_of_grating(g, target_wavelength=None, numG: int = 50,
                    terms: Sequence[FomTerm] | None = None,
                    taylor_terms: int | None = None, xyrra=None,
-                   fff: bool = True, *, device="cpu", dtype=None) -> float:
+                   fff: bool = True, *, device="cuda", dtype=None) -> float:
     """Figure of merit of one Grating (the reference's ``run_lua``), with
     the normal-vector factorization on by default (S4's accuracy class);
     ``xyrra`` overrides the grating's own geometry."""
-    device = torch.device(device)
+    device = _device(device)
     cdt = cpx.complex_dtype(device, dtype)
     rdt = cpx.real_dtype(cdt)
     orders, n_slabs, taylor, hermitian, tgt, inph, per_term = _fom_inputs(
@@ -217,13 +230,13 @@ def fom_of_grating(g, target_wavelength=None, numG: int = 50,
 
 def fom_batch_fn(g, target_wavelength=None, numG: int = 50, terms=None,
                  taylor_terms: int | None = None, fff: bool = True,
-                 static_override=None, *, device="cpu", dtype=None):
+                 static_override=None, *, device="cuda", dtype=None):
     """Return a function ``xyrra_batch (B, nE, 5) -> FOM values (B,)``
     (a real tensor on ``device``): the FOM of B candidate geometries of the
     same cell in one batched solve -- what the derivative-free optimizers
     dispatch their probes through.  ``static_override``: optional
     ``(Dx, Dy, n_slabs, taylor_terms)`` envelope covering this cell."""
-    device = torch.device(device)
+    device = _device(device)
     cdt = cpx.complex_dtype(device, dtype)
     rdt = cpx.real_dtype(cdt)
     orders, n_slabs, taylor, hermitian, tgt, inph, per_term = _fom_inputs(
@@ -247,7 +260,7 @@ def fom_batch_fn(g, target_wavelength=None, numG: int = 50, terms=None,
 
 
 def fom_of_gratings(gratings, target_wavelength=None, numG: int = 100,
-                    terms=None, *, device="cpu", dtype=None) -> list:
+                    terms=None, *, device="cuda", dtype=None) -> list:
     """FOM of a list of Gratings (members may differ in period)."""
     return [fom_of_grating(g, target_wavelength=target_wavelength, numG=numG,
                            terms=terms, device=device, dtype=dtype)

@@ -118,12 +118,13 @@ class Grating:
         return g
 
     def fom(self, target_wavelength=None, numG=50, terms=None, *,
-            device="cpu", dtype=None):
+            device="cuda", dtype=None):
         """Figure of merit of this cell (see
         :func:`metalens_tpu_torch.engine.fom_of_grating`): ``terms`` is a
         list of :class:`~metalens_tpu_torch.solver.fom.FomTerm` (None: the
         reference default); ``target_wavelength`` sets the incidence angle
-        via :meth:`get_angle_in_air`."""
+        via :meth:`get_angle_in_air`.  Runs on CUDA unless
+        ``device="cpu"``."""
         from .engine import fom_of_grating
         return fom_of_grating(self, target_wavelength=target_wavelength,
                               numG=numG, terms=terms, device=device,

@@ -3,8 +3,10 @@
 Counterpart of ``metalens_tpu/solver/pallas_inv.py``.  The TPU kernel
 (``_inv_kernel``) inverts well-conditioned complex matrices by unpivoted
 2x2 block recursion down to a Gauss-Jordan base; ``csrc/cinv.cu`` runs the
-same unpivoted elimination, one thread block per matrix (see the note at
-the top of that file).  The TPU-only machinery -- padding to sublane-aligned
+same unpivoted elimination, blocked in panels of pivots: one thread block
+per matrix with the working copy in registers for n <= 128, a thread-block
+cluster per matrix with the copy split across the blocks' shared memory
+above (see the note at the top of that file).  The TPU-only machinery -- padding to sublane-aligned
 sizes, interleave groups, the ``custom_vmap`` rule -- has no job here.
 
 :func:`inv` routes by device only: a CPU tensor goes to the plain version

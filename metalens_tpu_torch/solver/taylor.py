@@ -15,9 +15,9 @@ coefficient table (:func:`coeff_table`), so t may vary along the batch.
 :func:`taylor_factors` routes by device only: a CPU tensor goes to the plain
 version :func:`taylor_factors_reference` (the twin of
 ``pallas_taylor.xla_factors`` and ``rcwa._shared_power_polys``), a CUDA
-tensor to :func:`taylor_factors_cuda`, which launches the hand-written
-GEMM-with-chunk-epilogue kernel of ``csrc/taylor.cu`` once per stage and
-raises on anything it does not take.  There is no fallback.
+tensor to :func:`taylor_factors_cuda`, which runs the launch plan of
+:func:`staged_factors` on the hand-written kernels of ``csrc/taylor.cu``
+and raises on anything it does not take.  There is no fallback.
 """
 
 from __future__ import annotations
@@ -29,15 +29,19 @@ import torch
 
 from .. import _cuda
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# launches of cgemm_ps_c64 and of ps_chunks_c64 since the last reset
+# (chip_smoke.py reads and resets them)
 launches = 0
+chunk_launches = 0
 
+# Paterson-Stockmeyer chunks per series that ps_chunks_c64 holds (r <= 8
+# up to 160 terms)
+MAX_CHUNKS = 8
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "cgemm_ps_c64": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                     ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                     ctypes.c_void_p],
+    "cgemm_ps_c64": [_P, _L, _P, _L, _P, _L, _P, _L, _I, _I, _P],
+    "ps_chunks_c64": [_P, _L, _I, _P, _I, _I, _I, _P, _L, _I, _I, _P],
 }
 
 
@@ -140,72 +144,141 @@ def _check_cuda_matrices(F: torch.Tensor, G: torch.Tensor):
         raise ValueError("taylor_factors_cuda: F and G on different devices")
 
 
+def staged_factors(F: torch.Tensor, G: torch.Tensor, coeffs: torch.Tensor,
+                   terms: int, gemm, chunk_sums):
+    """(CS, SF, GS, GRF) by the kernels' launch plan, on the two primitives
+    of :func:`gemm_cuda` and :func:`chunk_sums_cuda` (or their plain
+    versions :func:`gemm_reference` and :func:`chunk_sums_reference`).
+    Products: 1 + (s-1) for Y0's powers, 3(r-1) Horner steps (each adds one
+    chunk in its epilogue; the top chunk is the start), 4 wrapper
+    products; and one chunk pass."""
+    B, n, _ = F.shape
+    s, r = _ps_split(terms)
+    pows = F.new_empty((B, s, n, n))
+    gemm(F, G, pows[:, 0])
+    for m in range(1, s):
+        gemm(pows[:, m - 1], pows[:, 0], pows[:, m])
+    chunks = F.new_empty((B, 3, r, n, n))
+    chunk_sums(pows, coeffs, terms, s, r, chunks)
+    X = pows[:, s - 1]
+    scratch = (torch.empty_like(F), torch.empty_like(F))
+    series = []
+    for p in range(3):
+        acc = chunks[:, p, r - 1]
+        for j in range(r - 2, -1, -1):
+            out = torch.empty_like(F) if j == 0 else scratch[j % 2]
+            gemm(acc, X, out, chunks[:, p, j])
+            acc = out
+        series.append(acc)
+    CS, SS, RS = series
+    SF, GS, RF, GRF = (torch.empty_like(F) for _ in range(4))
+    gemm(SS, F, SF)
+    gemm(G, SS, GS)
+    gemm(RS, F, RF)
+    gemm(G, RF, GRF)
+    return CS.contiguous(), SF, GS, GRF
+
+
+def gemm_reference(A, B, out, D=None):
+    """The plain version of ``cgemm_ps_c64``: out = A B (+ D)."""
+    out.copy_(A @ B if D is None else A @ B + D)
+
+
+def chunk_sums_reference(pows, coeffs, terms, s, r, out):
+    """The plain version of ``ps_chunks_c64``: the 3 r Paterson-Stockmeyer
+    chunks out[:, p, j] = sum_{m < s, js+m <= terms} coeffs[:, p, js+m]
+    Y0^m from the powers pows[:, m-1] = Y0^m (Y0^0 = I)."""
+    P = [torch.eye(pows.shape[-1], dtype=pows.dtype, device=pows.device)]
+    P += [pows[:, m - 1] for m in range(1, s)]
+    for p in range(3):
+        for j in range(r):
+            out[:, p, j] = sum(coeffs[:, p, j * s + m, None, None] * P[m]
+                               for m in range(s) if j * s + m <= terms)
+
+
+def _batch_stride(M: torch.Tensor) -> int:
+    """Batch stride of a (B, n, n) view whose matrices are row-major."""
+    n = M.shape[-1]
+    if M.ndim != 3 or M.stride()[1:] != (n, 1):
+        raise ValueError(f"needs row-major (B, n, n) matrices, got shape "
+                         f"{tuple(M.shape)} strides {M.stride()}")
+    return M.stride(0)
+
+
+def gemm_cuda(A: torch.Tensor, B: torch.Tensor, out: torch.Tensor,
+              D: torch.Tensor | None = None):
+    """out = A B (+ D) for complex64 CUDA (batch, n, n) views with
+    row-major matrices (any batch stride; out aliases none of the others):
+    one launch of ``cgemm_ps_c64``."""
+    global launches
+    views = (A, B, out) if D is None else (A, B, out, D)
+    if not out.is_cuda or any(M.shape != out.shape or M.device != out.device
+                              or M.dtype != torch.complex64 for M in views):
+        raise ValueError("gemm_cuda needs complex64 views of one shape on "
+                         "one CUDA device")
+    lib = _cuda.load("taylor", _SIGNATURES)
+    with torch.cuda.device(out.device):
+        status = lib.cgemm_ps_c64(
+            A.data_ptr(), _batch_stride(A), B.data_ptr(), _batch_stride(B),
+            None if D is None else D.data_ptr(),
+            0 if D is None else _batch_stride(D), out.data_ptr(),
+            _batch_stride(out), out.shape[-1], out.shape[0],
+            torch.cuda.current_stream(out.device).cuda_stream)
+    _cuda.check(status, "cgemm_ps_c64")
+    launches += 1
+
+
+def _check_coeffs(coeffs: torch.Tensor, batch: int, terms: int, device):
+    if (coeffs.device != device or coeffs.dtype != torch.float32
+            or tuple(coeffs.shape) != (batch, 3, terms + 1)
+            or not coeffs.is_contiguous()):
+        raise ValueError(f"needs a contiguous float32 coefficient table of "
+                         f"shape {(batch, 3, terms + 1)} on {device}, got "
+                         f"{coeffs.dtype} {tuple(coeffs.shape)} on "
+                         f"{coeffs.device}")
+
+
+def chunk_sums_cuda(pows: torch.Tensor, coeffs: torch.Tensor, terms: int,
+                    s: int, r: int, out: torch.Tensor):
+    """:func:`chunk_sums_reference` for contiguous complex64 CUDA powers
+    (batch, s, n, n) and chunks (batch, 3, r, n, n) with the float32 table
+    of :func:`coeff_table`: one launch of ``ps_chunks_c64``."""
+    global chunk_launches
+    B, n = pows.shape[0], pows.shape[-1]
+    if (not pows.is_cuda or out.device != pows.device
+            or pows.dtype != torch.complex64 or out.dtype != torch.complex64
+            or tuple(pows.shape) != (B, s, n, n)
+            or tuple(out.shape) != (B, 3, r, n, n)
+            or not (pows.is_contiguous() and out.is_contiguous())
+            or not 1 <= r <= MAX_CHUNKS or (r - 1) * s > terms):
+        raise ValueError(f"chunk_sums_cuda: powers {pows.dtype} "
+                         f"{tuple(pows.shape)} on {pows.device}, chunks "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}, "
+                         f"s = {s}, r = {r}, terms = {terms}")
+    _check_coeffs(coeffs, B, terms, pows.device)
+    lib = _cuda.load("taylor", _SIGNATURES)
+    with torch.cuda.device(out.device):
+        status = lib.ps_chunks_c64(
+            pows.data_ptr(), pows.stride(0), s, coeffs.data_ptr(),
+            coeffs.stride(0), terms, r, out.data_ptr(), out.stride(0), n, B,
+            torch.cuda.current_stream(out.device).cuda_stream)
+    _cuda.check(status, "ps_chunks_c64")
+    chunk_launches += 1
+
+
 def taylor_factors_cuda(F: torch.Tensor, G: torch.Tensor,
                         coeffs: torch.Tensor, terms: int):
     """(CS, SF, GS, GRF) of contiguous complex64 CUDA batches F, G
     (B, n, n) with the (B, 3, terms+1) float32 coefficient table of
-    :func:`coeff_table`.  Every matrix product is a launch of the
-    hand-written kernel: 1 + (s-1) + 3(r-1) + 4 products plus one
-    epilogue-only launch per series for the top Paterson-Stockmeyer chunk.
-    Forward only."""
+    :func:`coeff_table`: the plan of :func:`staged_factors` on the
+    hand-written kernels.  Forward only."""
     _check_cuda_matrices(F, G)
-    B, n, _ = F.shape
-    if (coeffs.device != F.device or coeffs.dtype != torch.float32
-            or tuple(coeffs.shape) != (B, 3, terms + 1)
-            or not coeffs.is_contiguous()):
-        raise ValueError(f"taylor_factors_cuda needs a contiguous float32 "
-                         f"coefficient table of shape {(B, 3, terms + 1)} on "
-                         f"{F.device}, got {coeffs.dtype} "
-                         f"{tuple(coeffs.shape)} on {coeffs.device}")
-    s, r = _ps_split(terms)
-    nn = n * n
-    csize = F.element_size()
-    lib = _cuda.load("taylor", _SIGNATURES)
-    pows = torch.empty((B, s, n, n), dtype=F.dtype, device=F.device)
-    sP = s * nn
-
-    def power(m):          # pointer to Y0^m inside pows (m >= 1)
-        return pows.data_ptr() + (m - 1) * nn * csize
-
-    with torch.cuda.device(F.device):
-        stream = torch.cuda.current_stream(F.device).cuda_stream
-
-        def launch(a, sa, b, sb, c, sc, coef_off=0, n_terms=0):
-            global launches
-            status = lib.cgemm_ps_c64(
-                a, sa, b, sb, c, sc, n, B,
-                coeffs.data_ptr() if n_terms else None, 3 * (terms + 1),
-                coef_off, n_terms, pows.data_ptr(), sP, stream)
-            _cuda.check(status, "cgemm_ps_c64")
-            launches += 1
-
-        launch(F.data_ptr(), nn, G.data_ptr(), nn, power(1), sP)   # Y0
-        for m in range(2, s + 1):
-            launch(power(m - 1), sP, power(1), sP, power(m), sP)
-        starts = list(range(0, terms + 1, s))
-        scratch = (torch.empty_like(F), torch.empty_like(F))
-        series = []
-        for p in range(3):
-            dst = torch.empty_like(F)
-            prev = None
-            for k, j in enumerate(reversed(starts)):
-                out = dst if k == len(starts) - 1 else scratch[k % 2]
-                off = p * (terms + 1) + j
-                hi = min(s, terms + 1 - j)
-                if prev is None:        # top chunk: the sum alone
-                    launch(None, 0, None, 0, out.data_ptr(), nn, off, hi)
-                else:                   # Horner: prev X + chunk
-                    launch(prev.data_ptr(), nn, power(s), sP,
-                           out.data_ptr(), nn, off, hi)
-                prev = out
-            series.append(dst)
-        CS, SS, RS = series
-        SF, GS, RF, GRF = (torch.empty_like(F) for _ in range(4))
-        launch(SS.data_ptr(), nn, F.data_ptr(), nn, SF.data_ptr(), nn)
-        launch(G.data_ptr(), nn, SS.data_ptr(), nn, GS.data_ptr(), nn)
-        launch(RS.data_ptr(), nn, F.data_ptr(), nn, RF.data_ptr(), nn)
-        launch(G.data_ptr(), nn, RF.data_ptr(), nn, GRF.data_ptr(), nn)
-    return CS, SF, GS, GRF
+    _check_coeffs(coeffs, F.shape[0], terms, F.device)
+    if _ps_split(terms)[1] > MAX_CHUNKS:
+        raise ValueError(f"taylor_factors_cuda supports at most "
+                         f"{MAX_CHUNKS} Paterson-Stockmeyer chunks per "
+                         f"series (160 terms), got {terms} terms")
+    return staged_factors(F, G, coeffs, terms, gemm_cuda, chunk_sums_cuda)
 
 
 def taylor_factors(F: torch.Tensor, G: torch.Tensor, t, terms: int):

@@ -57,9 +57,10 @@ def _hot_path_calls(device, module, name, numG=25):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 25, 100, 169, 170, 200, 256])
+@pytest.mark.parametrize("n", [1, 25, 50, 100, 128, 129, 200, 256])
 def test_inverse_kernel_random(cuda_device, n):
-    """Both shared-memory (n <= 169) and global-memory variants."""
+    """Both routes: registers (n <= 128), then a cluster of 2 blocks
+    (n <= 200) and of 4 blocks above."""
     gen = torch.Generator().manual_seed(n)
     noise = torch.view_as_complex(torch.randn(3, n, n, 2, generator=gen))
     A = (torch.eye(n) + 0.4 * noise / math.sqrt(n)).to(torch.complex64)
@@ -95,6 +96,36 @@ def test_inverse_kernel_refuses(cuda_device):
     A = torch.eye(4, dtype=torch.complex64, device=cuda_device)[None]
     with pytest.raises(NotImplementedError):
         inv.inv_cuda(A.requires_grad_())
+
+
+@pytest.mark.cuda
+def test_taylor_kernel_batch_above_grid_z_limit(cuda_device):
+    """The batch shares gridDim.x with the tiles: 70,000 matrices (more
+    than gridDim.z's 65,535) in one call."""
+    gen = torch.Generator().manual_seed(7)
+    B, n, terms = 70_000, 4, 8
+    F = 0.35 * torch.view_as_complex(torch.randn(B, n, n, 2, generator=gen))
+    G = 0.35 * torch.view_as_complex(torch.randn(B, n, n, 2, generator=gen))
+    F = F.to(torch.complex64).to(cuda_device)
+    G = G.to(torch.complex64).to(cuda_device)
+    t = torch.linspace(0.3, 0.9, B)
+    got = taylor.taylor_factors(F, G, t, terms)
+    want = taylor.taylor_factors_reference(F, G, t.to(cuda_device), terms)
+    for g, w in zip(got, want):
+        assert ((g - w).abs().max() / w.abs().max()).item() < 2e-5
+
+
+@pytest.mark.cuda
+def test_taylor_kernel_refuses(cuda_device):
+    F = torch.zeros(2, 8, 8, dtype=torch.complex64, device=cuda_device)
+    table = torch.zeros(2, 3, 162, device=cuda_device)
+    with pytest.raises(ValueError, match="160 terms"):
+        taylor.taylor_factors_cuda(F, F, table, 161)
+    with pytest.raises(ValueError, match="coefficient table"):
+        taylor.taylor_factors_cuda(F, F, taylor.coeff_table(0.5, 8, 1, "cpu"),
+                                   8)
+    with pytest.raises(ValueError, match="contiguous"):
+        taylor.taylor_factors(F.mT, F, 0.5, 8)
 
 
 @pytest.mark.cuda

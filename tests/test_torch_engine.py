@@ -50,11 +50,12 @@ def test_fom_of_grating_matches_jax(jax_foms):
     tg = grating_from_reference(jg)
     terms = [TFomTerm(*t) for t in TERMS]
     got = tengine.fom_of_grating(tg, target_wavelength=580 * nm, numG=NUMG,
-                                 terms=terms)
+                                 terms=terms, device="cpu")
     assert abs(got - want[0]) < 1e-10
-    assert got == tg.fom(target_wavelength=580 * nm, numG=NUMG, terms=terms)
+    assert got == tg.fom(target_wavelength=580 * nm, numG=NUMG, terms=terms,
+                         device="cpu")
     assert tengine.fom_of_gratings([tg, tg.copy()], 580 * nm, NUMG,
-                                   terms) == [got, got]
+                                   terms, device="cpu") == [got, got]
     fields = ("wavelength", "weight", "target_order", "inphase")
     assert [[getattr(t, f) for f in fields] for t in TDEFAULT] \
         == [[getattr(t, f) for f in fields] for t in JDEFAULT]
@@ -66,7 +67,8 @@ def test_fom_batch_fn_matches_jax(jax_foms):
                              jg.cyl_height, jg.n_glass, jg.n_tio2,
                              jg.xyrra_list)
     got = tengine.fom_batch_fn(tg, 580 * nm, NUMG,
-                               [TFomTerm(*t) for t in TERMS])(batch)
+                               [TFomTerm(*t) for t in TERMS],
+                               device="cpu")(batch)
     assert got.dtype == torch.float64 and got.shape == (3,)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-10)
 
@@ -74,9 +76,25 @@ def test_fom_batch_fn_matches_jax(jax_foms):
 def test_fom_errors_match_reference_behaviour():
     tg = grating_from_reference(_jax_grating())
     with pytest.raises(ValueError, match="target_wavelength"):
-        tg.fom(numG=NUMG)
+        tg.fom(numG=NUMG, device="cpu")
     with pytest.raises(ValueError, match="outside"):
-        tg.fom(target_wavelength=580 * nm, numG=1)
+        tg.fom(target_wavelength=580 * nm, numG=1, device="cpu")
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """Called without device=, every entry point runs on CUDA: where torch
+    has no CUDA device it raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tg = grating_from_reference(_jax_grating())
+    calls = (
+        lambda: tengine.fom_of_grating(tg, 580 * nm, NUMG),
+        lambda: tengine.fom_batch_fn(tg, 580 * nm, NUMG),
+        lambda: tengine.fom_of_gratings([tg], 580 * nm, NUMG),
+        lambda: tg.fom(target_wavelength=580 * nm, numG=NUMG),
+    )
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_repr_round_trip_across_packages():

@@ -72,15 +72,34 @@ def test_ps_split_and_coeff_table():
                                    rtol=1e-6, atol=1e-30)
 
 
+@pytest.mark.parametrize("terms", [2, 8, 20])
+def test_kernel_launch_plan_matches_reference(terms):
+    """The CUDA path's staging (powers, one chunk pass, Horner steps that
+    each add one chunk, wrapper products) on the plain versions of its two
+    kernels, against the plain version of the whole; terms = 2 has a single
+    chunk per series."""
+    rng = np.random.default_rng(3)
+    F, G = (torch.as_tensor(M) for M in _rand_fg(rng, 2, 6))
+    t = torch.tensor([0.4, 0.8], dtype=torch.float64)
+    coeffs = ttay.coeff_table(t, terms, 2, "cpu").double()
+    got = ttay.staged_factors(F, G, coeffs, terms, ttay.gemm_reference,
+                               ttay.chunk_sums_reference)
+    want = ttay.taylor_factors_reference(F, G, t, terms)
+    for g, w in zip(got, want):
+        assert g.is_contiguous()
+        # the table holds float32 coefficients
+        assert _rel(g.numpy(), w.numpy()) < 1e-6
+
+
 def test_cpu_routing_launches_no_kernel():
     """On the CPU the wrapper takes the plain version because the tensor
     lies on the CPU: no library is built or loaded, the count stays 0, and
     the kernel entry refuses a CPU tensor."""
-    before = ttay.launches
+    before = ttay.launches, ttay.chunk_launches
     rng = np.random.default_rng(2)
     F, G = _rand_fg(rng, 1, 8)
     ttay.taylor_factors(torch.as_tensor(F), torch.as_tensor(G), 0.5, 8)
-    assert ttay.launches == before
+    assert (ttay.launches, ttay.chunk_launches) == before
     assert "taylor" not in _cuda._loaded
     coeffs = ttay.coeff_table(0.5, 8, 1, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
