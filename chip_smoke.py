@@ -18,8 +18,10 @@ and prints the torch.profiler device time by kernel of each.
 
 Every phase is fatal: a failed check exits nonzero.  The last two lines of
 standard output are a JSON object describing each kernel (launches in the
-main-path run, error against the plain version, times and bound at the main
-path's bench size, and the same per size under ``sizes``) and
+counted runs of the main path at numG = 50 and numG = 100, summed and per
+path, with the inverse's per route; error against the plain version; times
+and bound at the main path's bench size, and the same per size under
+``sizes``) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits nonzero
 before printing any result.  Imports nothing of JAX.
 """
@@ -367,35 +369,74 @@ def main():
               f"{k_ms:.3f} ms ({products} GEMM launches + 1 chunk pass), "
               f"plain {p_ms:.3f} ms; bound {b_ms:.3f} ms ({b_by}, "
               f"{flops:.3e} flop), kernels at {100 * b_ms / k_ms:.1f}% of it")
+        # one GEMM of the plan (Y0 = F G) against cuBLAS's complex GEMM
+        # (torch.matmul) on the same operands
+        y_k, y_l = torch.empty_like(F), torch.empty_like(F)
+        g_ms, gl_ms = ab_ms(lambda: torch.matmul(F, Gm, out=y_l),
+                            lambda: taylor.gemm_cuda(F, Gm, y_k), 10)
+        rel = ((y_k - y_l).abs().max() / y_l.abs().max()).item()
+        require(rel <= TOL_TAYLOR, f"Taylor GEMM vs torch.matmul: {rel}")
+        gb_ms, gb_by = bound_ms(8 * n ** 3 * B, 3 * 8 * n * n * B)
+        print(f"phase 3 one GEMM B={B} n={n}: kernel {g_ms:.3f} ms "
+              f"({8 * n ** 3 * B / g_ms / 1e9:.1f} TFLOP/s), torch.matmul "
+              f"(cuBLAS) {gl_ms:.3f} ms; bound {gb_ms:.4f} ms ({gb_by}); "
+              f"max-normalized err {rel:.3e}")
+        del y_k, y_l
         tay_sizes.append(dict(n=n, B=B, terms=n_terms, ms=k_ms, plain_ms=p_ms,
-                              library_ms=None, bound_ms=b_ms, bound_by=b_by))
+                              library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                              gemm_ms=g_ms, gemm_library_ms=gl_ms,
+                              gemm_bound_ms=gb_ms))
         # the chunk pass alone, on the powers of this F G
         pows = torch.empty((B, s, n, n), dtype=F.dtype, device=dev)
         pows[:, 0] = F @ Gm
         for m in range(1, s):
             pows[:, m] = pows[:, m - 1] @ pows[:, 0]
         ck = torch.empty((B, 3, r, n, n), dtype=F.dtype, device=dev)
-        cp = torch.empty_like(ck)
+        cp, cl = torch.empty_like(ck), torch.empty_like(ck)
+        # the library call: one batched complex matmul of the coefficient
+        # block (B, 3r, s-1) with the stacked powers Y0^1..Y0^(s-1)
+        # (B, s-1, n^2), and the Y0^0 = I term added on the diagonal
+        idx = (torch.arange(r, device=dev)[:, None] * s
+               + torch.arange(s, device=dev))
+        cblk = (coeffs[:, :, idx.clamp(max=n_terms)] * (idx <= n_terms)
+                ).reshape(B, 3 * r, s).to(F.dtype)
+        cmat, c0 = cblk[:, :, 1:].contiguous(), cblk[:, :, :1].contiguous()
+        pw = pows[:, :s - 1].reshape(B, s - 1, n * n)
+        cl_flat = cl.view(B, 3 * r, n * n)
+        cl_diag = cl.view(B, 3 * r, n, n).diagonal(dim1=-2, dim2=-1)
+
+        def chunk_library():
+            torch.matmul(cmat, pw, out=cl_flat)
+            cl_diag.add_(c0)
+
+        cl1_ms = cuda_ms(chunk_library, 10)
         c_ms, cp_ms = ab_ms(
             lambda: taylor.chunk_sums_reference(pows, coeffs, n_terms, s, r,
                                                 cp),
             lambda: taylor.chunk_sums_cuda(pows, coeffs, n_terms, s, r, ck),
             10)
+        cl_ms = (cl1_ms + cuda_ms(chunk_library, 10)) / 2
         rel = ((ck - cp).abs().amax((-2, -1))
                / cp.abs().amax((-2, -1))).max().item()
+        rel_lib = ((cl - cp).abs().amax((-2, -1))
+                   / cp.abs().amax((-2, -1))).max().item()
         chunk_err_abs = max(chunk_err_abs, (ck - cp).abs().max().item())
         require(rel <= TOL_TAYLOR, f"chunk pass at n={n}: {rel}")
+        require(rel_lib <= TOL_TAYLOR, f"chunk library call at n={n}: "
+                f"{rel_lib}")
         cb_ms, cb_by = bound_ms(4 * power_terms * n * n * B,
                                 (s - 1 + 3 * r) * 8 * n * n * B
                                 + coeffs.numel() * 4)
         print(f"phase 3 chunk pass B={B} n={n} s={s} r={r}: kernel "
-              f"{c_ms:.3f} ms, plain {cp_ms:.3f} ms; bound {cb_ms:.4f} ms "
-              f"({cb_by}), kernel at {100 * cb_ms / c_ms:.1f}% of it; "
-              f"worst per-chunk max-normalized err {rel:.3e}")
+              f"{c_ms:.3f} ms, plain {cp_ms:.3f} ms, library (batched "
+              f"torch.matmul + diagonal add) {cl_ms:.3f} ms; bound "
+              f"{cb_ms:.4f} ms ({cb_by}), kernel at {100 * cb_ms / c_ms:.1f}% "
+              f"of it; worst per-chunk max-normalized err {rel:.3e} "
+              f"(library call {rel_lib:.3e})")
         chunk_sizes.append(dict(n=n, B=B, terms=n_terms, ms=c_ms,
-                                plain_ms=cp_ms, library_ms=None,
+                                plain_ms=cp_ms, library_ms=cl_ms,
                                 bound_ms=cb_ms, bound_by=cb_by))
-        del F, Gm, pows, ck, cp
+        del F, Gm, pows, ck, cp, cl, cl_flat, cl_diag, pw
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     results["taylor"] = dict(
         route="cuda", source="metalens_tpu_torch/csrc/taylor.cu",
@@ -409,29 +450,53 @@ def main():
         entry="ps_chunks_c64", max_abs_err=chunk_err_abs,
         **{k: chunk_sizes[0][k] for k in keys}, sizes=chunk_sizes)
 
-    # ---- phase 4: the main path (bench cell, B=1024, complex64) --------
-    inv.launches = taylor.launches = taylor.chunk_launches = 0
-    ampf, ampr, _, _ = main_path()
-    torch.cuda.synchronize()
-    launches = {"cinv": inv.launches, "taylor": taylor.launches,
-                "taylor_chunks": taylor.chunk_launches}
-    print(f"phase 4 main path numG={numG} B={BATCH} schedule=({ns},{terms}): "
-          f"launches {launches}")
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel of the path did not launch: {launches}")
-    require(ampf.shape == (BATCH, 2 * numG, 2) and ampf.dtype ==
-            torch.complex64, f"ampf {tuple(ampf.shape)} {ampf.dtype}")
-    require(bool(torch.isfinite(torch.view_as_real(ampf)).all())
-            and bool(torch.isfinite(torch.view_as_real(ampr)).all()),
-            "non-finite amplitudes")
-    # every cell against the same path with the plain versions (complex64)
-    with plain_versions():
-        pf, pr, _, _ = main_path()
-    plain_err = max((ampf - pf).abs().max().item(),
-                    (ampr - pr).abs().max().item())
-    print(f"phase 4 all {BATCH} cells, kernels vs plain versions: max err "
-          f"{plain_err:.3e} (bound {TOL_GUARD})")
-    require(plain_err <= TOL_GUARD, f"main path vs plain: {plain_err}")
+    # ---- phase 4: the main path at numG = 50 (the bench cell, B = 1024)
+    # and numG = 100 (B = 256), complex64, each driven once with every
+    # launch count set to 0 just before it and read just after it
+    def reset_counts():
+        inv.launches = taylor.launches = taylor.chunk_launches = 0
+        for route in inv.route_launches:
+            inv.route_launches[route] = 0
+
+    path_launches, path_routes = {}, {}
+    amps = {}
+    for G, run, B, sched in ((numG, main_path, BATCH, (ns, terms)),
+                             (100, path100, BATCH // 4, (ns100, terms100))):
+        label = f"numG={G}"
+        reset_counts()
+        af, ar, _, _ = run()
+        torch.cuda.synchronize()
+        counts = {"cinv": inv.launches, "taylor": taylor.launches,
+                  "taylor_chunks": taylor.chunk_launches}
+        path_launches[label] = counts
+        path_routes[label] = dict(inv.route_launches)
+        print(f"phase 4 main path {label} B={B} schedule={sched}: launches "
+              f"{counts}, inverse routes {path_routes[label]}")
+        require(all(v > 0 for v in counts.values()),
+                f"{label}: a kernel of the path did not launch: {counts}")
+        require(af.shape == (B, 2 * G, 2) and af.dtype == torch.complex64,
+                f"{label}: ampf {tuple(af.shape)} {af.dtype}")
+        require(bool(torch.isfinite(torch.view_as_real(af)).all())
+                and bool(torch.isfinite(torch.view_as_real(ar)).all()),
+                f"{label}: non-finite amplitudes")
+        # every cell against the same path with the plain versions
+        with plain_versions():
+            pf, pr, _, _ = run()
+        plain_err = max((af - pf).abs().max().item(),
+                        (ar - pr).abs().max().item())
+        print(f"phase 4 {label} all {B} cells, kernels vs plain versions: "
+              f"max err {plain_err:.3e} (bound {TOL_GUARD})")
+        require(plain_err <= TOL_GUARD, f"{label} vs plain: {plain_err}")
+        amps[G] = af, ar
+        del pf, pr
+    # n = 200 inverts on the cluster route, n <= 128 on the register route
+    require(path_routes["numG=50"]["cluster"] == 0
+            and path_routes["numG=100"]["cluster"] > 0
+            and path_routes["numG=100"]["registers"] > 0,
+            f"inverse routes per path: {path_routes}")
+    results["cinv"]["route_launches_by_path"] = path_routes
+    ampf, ampr = amps.pop(numG)
+    del amps
     # cells across the ux sweep, and the one nearest the grazing ux = 0.45,
     # against the same schedule in complex128 on the CPU
     ux_np = ux.cpu().numpy()
@@ -448,7 +513,6 @@ def main():
           f"{ux_np[idx[-1]]:.3f}) vs CPU complex128: max err {cpu_err:.3e} "
           f"(bound {TOL_GUARD})")
     require(cpu_err <= TOL_GUARD, f"main path vs CPU complex128: {cpu_err}")
-    del pf, pr
 
     # end to end, kernels against plain versions, in turns on this card
     modes = {"kernels": {}, "plain": dict(inverse=True, taylor_factors=True),
@@ -516,7 +580,7 @@ def main():
     g = Grating(lateral_period=LY, grating_period=LX, cyl_height=H,
                 xyrra_list_in_nm_deg=BASE * [1 / NM, 1 / NM, 1 / NM, 1 / NM,
                                              180 / np.pi])
-    inv.launches = taylor.launches = taylor.chunk_launches = 0
+    reset_counts()
     f_gpu = g.fom(target_wavelength=LAM, numG=numG)
     require(inv.launches > 0 and taylor.launches > 0
             and taylor.chunk_launches > 0,
@@ -536,7 +600,12 @@ def main():
     print(f"phase 5 fom_batch_fn B=20: max |cuda - cpu| = {fb_err:.3e}")
     require(fb_err <= TOL_GUARD, f"fom_batch_fn cuda vs cpu: {fb_err}")
 
-    kernels = [dict(name=name, launches=launches[name], **r)
+    # launches: the sum over the two counted main-path runs
+    kernels = [dict(name=name,
+                    launches=sum(c[name] for c in path_launches.values()),
+                    launches_by_path={p: c[name]
+                                      for p, c in path_launches.items()},
+                    **r)
                for name, r in results.items()]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

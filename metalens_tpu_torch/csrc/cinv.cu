@@ -453,7 +453,6 @@ extern "C" int cinv_c64(const void* a, void* out, int n, int batch,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float2* pa = static_cast<const float2*>(a);
   float2* po = static_cast<float2*>(out);
-  if (n <= 32) return launch_reg<2, 2, 1>(pa, po, n, batch, s);
   if (n <= 64) return launch_reg<4, 4, 1>(pa, po, n, batch, s);
   // n = 100: 15 x 17 threads of 7 x 6 complex, two blocks per SM
   if (n <= 102) return launch_reg<7, 6, 2>(pa, po, n, batch, s);

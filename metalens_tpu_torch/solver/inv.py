@@ -23,9 +23,12 @@ import torch
 from .. import _cuda
 
 MAX_N = 256
+REGISTER_MAX_N = 128      # cinv.cu's register route; clusters above
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset, in all and by route (chip_smoke.py
+# reads and resets them)
 launches = 0
+route_launches = {"registers": 0, "cluster": 0}
 
 _SIGNATURES = {
     "cinv_c64": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -65,6 +68,7 @@ def inv_cuda(A: torch.Tensor) -> torch.Tensor:
         status = lib.cinv_c64(A.data_ptr(), out.data_ptr(), n, batch, stream)
     _cuda.check(status, "cinv_c64")
     launches += 1
+    route_launches["cluster" if n > REGISTER_MAX_N else "registers"] += 1
     return out
 
 

@@ -65,9 +65,11 @@ def test_inverse_kernel_random(cuda_device, n):
     noise = torch.view_as_complex(torch.randn(3, n, n, 2, generator=gen))
     A = (torch.eye(n) + 0.4 * noise / math.sqrt(n)).to(torch.complex64)
     A = A.to(cuda_device)
-    before = inv.launches
+    route = "cluster" if n > inv.REGISTER_MAX_N else "registers"
+    before, before_route = inv.launches, inv.route_launches[route]
     W = inv.inv(A)
     assert inv.launches == before + 1
+    assert inv.route_launches[route] == before_route + 1
     eye = torch.eye(n, dtype=A.dtype, device=cuda_device)
     assert (W @ A - eye).abs().max().item() < 5e-5
 
