@@ -12,14 +12,19 @@ runs.  It times each kernel against its plain version (for the inverse,
 path gives it at numG = 50 and numG = 100, beside the least time the card
 could take for the same work (its bound).  It also times the path with the
 kernels against the path with the plain versions, in turns, at both numG,
-and prints the torch.profiler device time by kernel of each.
+and prints the torch.profiler device time by kernel of each.  Phase 6 drives
+the design loop: the kernels' backward passes against autograd through the
+plain versions, ``fom_value_and_grad`` on the card against the CPU in
+complex128 (launches counted, timed, profiled forward and backward),
+``optimize_gradient`` for 20 steps and one ``vary_angle`` member.
 
     python3 chip_smoke.py
 
 Every phase is fatal: a failed check exits nonzero.  The last two lines of
 standard output are a JSON object describing each kernel (launches in the
-counted runs of the main path at numG = 50 and numG = 100, summed and per
-path, with the inverse's per route; error against the plain version; times
+counted runs of the main path at numG = 50 and numG = 100 and of one
+``fom_value_and_grad`` call, summed and per path, with the inverse's per
+route; error against the plain version; times
 and bound at the main path's bench size, and the same per size under
 ``sizes``) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits nonzero
@@ -46,6 +51,11 @@ BASE = np.array([[-215 * NM, 2 * NM, 144 * NM, 111 * NM, 0.0],
 TOL_GUARD = 2e-3      # bench.py's accuracy-guard bound vs the f64 truth
 TOL_INV = 1e-4        # inverse kernel vs plain, per matrix, max-normalized
 TOL_TAYLOR = 2e-5     # the bound of tests/test_pallas_taylor.py
+TOL_FOM = 1e-5        # fom_value_and_grad: |fom| on CUDA vs CPU complex128
+TOL_GRAD = 2e-3       # and the relative norm of the gradient's difference
+# the design loop's cell: the bench cell's periods and height, two rotated
+# pillars inside the fabrication constraints (validate), in nm and degrees
+DESIGN_NM_DEG = [[-215., 2., 144., 105., 0.], [196., -8., 100., 102., 6.]]
 BATCH = 1024
 PEAK_F32 = 67e12          # flop/s, f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -195,6 +205,55 @@ def profile(fn, label, rows=10):
     for e in sorted(events, key=dev_us, reverse=True)[:rows]:
         print(f"profile {label}:   {dev_us(e) / 1e3:9.3f} ms "
               f"{e.count:5d} calls  {e.key[:80]}")
+
+
+def profile_split(fn, label, wall_ms, rows=6):
+    """One call of fn (a forward and a backward pass) under torch.profiler:
+    device time by kernel, split into the kernels launched by forward ops
+    and by backward ops (those under an
+    ``autograd::engine::evaluate_function`` or a backward function's
+    event), and the device's idle
+    share against ``wall_ms``, the call's time without the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    device_total = sum(e.self_device_time_total for e in events
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+    parts = {"forward": {}, "backward": {}}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        p = e      # scope 1: a backward function's record scope
+        while p is not None and not (p.scope == 1 or p.name.startswith(
+                "autograd::engine::evaluate_function")):
+            p = p.cpu_parent
+        part = parts["forward" if p is None else "backward"]
+        for k in e.kernels:
+            n_calls, us = part.get(k.name, (0, 0.0))
+            part[k.name] = (n_calls + 1, us + k.duration)
+    split = {name: sum(us for _, us in part.values()) / 1e3
+             for name, part in parts.items()}
+    ops = {name: sum(n for n, _ in part.values())
+           for name, part in parts.items()}
+    print(f"profile {label}: device time {device_total / 1e3:.3f} ms "
+          f"(forward {split['forward']:.3f} ms in {ops['forward']} device "
+          f"operations, backward {split['backward']:.3f} ms in "
+          f"{ops['backward']}, unattributed "
+          f"{device_total / 1e3 - sum(split.values()):.3f} ms); against "
+          f"{wall_ms:.3f} ms of wall per call the device idles "
+          f"{100 * (1 - device_total / 1e3 / wall_ms):.1f}%")
+    for name, part in parts.items():
+        for k, (n_calls, us) in sorted(part.items(), key=lambda kv: -kv[1][1]
+                                       )[:rows]:
+            print(f"profile {label} {name}: {us / 1e3:9.3f} ms "
+                  f"{n_calls:5d} calls  {k[:80]}")
+    return device_total / 1e3, split
 
 
 def main():
@@ -600,7 +659,195 @@ def main():
     print(f"phase 5 fom_batch_fn B=20: max |cuda - cpu| = {fb_err:.3e}")
     require(fb_err <= TOL_GUARD, f"fom_batch_fn cuda vs cpu: {fb_err}")
 
-    # launches: the sum over the two counted main-path runs
+    # ---- phase 6: the design loop on the card ---------------------------
+    import importlib
+    from metalens_tpu_torch import (GratingCollection, fom_value_and_grad,
+                                    optimize_gradient, resize, validate,
+                                    vary_angle)
+    from metalens_tpu_torch.engine import fom_of_grating, static_solve_config
+    from metalens_tpu_torch.solver.fom import DEFAULT_FOM_TERMS
+    opt_module = importlib.import_module("metalens_tpu_torch.optimize")
+    t6 = time.perf_counter()
+    gen6 = torch.Generator(device=dev).manual_seed(6)
+
+    def crandn(like):
+        return torch.view_as_complex(torch.randn(
+            *like.shape, 2, generator=gen6, device=dev)).to(like.dtype)
+
+    # 6.1: InverseFn's backward on the kernel against autograd through
+    # torch.linalg.inv, on every n = 100 inverse of the main path
+    worst = 0.0
+    caps = [A for (A,) in capture(inv, "inv", main_path)
+            if A.shape[-1] == 2 * numG]
+    for A in caps:
+        ct = crandn(A)
+        A_k, A_r = (A.detach().clone().requires_grad_() for _ in range(2))
+        got, = torch.autograd.grad(inv.inv(A_k), A_k, ct)
+        want, = torch.autograd.grad(inv.inv_reference(A_r), A_r, ct)
+        require(got.dtype == torch.complex64, f"inverse grad {got.dtype}")
+        worst = max(worst, rel_err(got, want)[0])
+    print(f"phase 6 inverse backward, {len(caps)} main-path batches n=100 "
+          f"B={BATCH}: worst per-matrix rel err vs torch.linalg.inv autograd "
+          f"{worst:.3e} (bound {TOL_INV})")
+    require(len(caps) == 5 and worst <= TOL_INV,
+            f"inverse backward: {len(caps)} batches, err {worst}")
+    del caps, A, A_k, A_r, ct, got, want
+
+    # 6.2: TaylorFn (kernels forward, plain replay backward) against
+    # autograd through taylor_factors_reference, on the path's own F, G
+    (F, Gm, t_path, n_terms), = capture(taylor, "taylor_factors", main_path)
+    cts = [crandn(F) for _ in range(4)]
+    F_k, G_k, F_r, G_r = (M.detach().clone().requires_grad_()
+                          for M in (F, Gm, F, Gm))
+    got = torch.autograd.grad(taylor.taylor_factors(F_k, G_k, t_path,
+                                                    n_terms), (F_k, G_k), cts)
+    want = torch.autograd.grad(taylor.taylor_factors_reference(
+        F_r, G_r, t_path, n_terms), (F_r, G_r), cts)
+    for name, k, r in zip(("grad F", "grad G"), got, want):
+        rel = ((k - r).abs().max() / r.abs().max()).item()
+        print(f"phase 6 Taylor backward n={F.shape[-1]} B={F.shape[0]} "
+              f"terms={n_terms} {name}: max-normalized err {rel:.3e} "
+              f"(bound {TOL_TAYLOR})")
+        require(k.dtype == torch.complex64 and rel <= TOL_TAYLOR,
+                f"Taylor backward {name}: {k.dtype} {rel}")
+    del F, Gm, cts, F_k, G_k, F_r, G_r, got, want
+    torch.cuda.empty_cache()
+
+    # 6.3: fom_value_and_grad at numG = 50, the default FOM terms, on CUDA
+    # complex64 against the CPU in complex128
+    gd = Grating(lateral_period=LY, grating_period=LX, cyl_height=H,
+                 xyrra_list_in_nm_deg=DESIGN_NM_DEG)
+    require(validate(gd), "the design cell is not feasible")
+    vg = fom_value_and_grad(gd, LAM, numG)
+    _, n_s, n_t, _ = static_solve_config(
+        gd, [t.wavelength for t in DEFAULT_FOM_TERMS], numG, torch.complex64)
+    s6, r6 = taylor._ps_split(n_t)
+    n_fom = len(DEFAULT_FOM_TERMS)
+    expect = {"cinv": n_fom * (5 + int(math.log2(n_s))),
+              "taylor": n_fom * (1 + (s6 - 1) + 3 * (r6 - 1) + 4),
+              "taylor_chunks": n_fom}
+    reset_counts()
+    f_gpu, g_gpu = vg(gd.xyrra_list)
+    torch.cuda.synchronize()
+    counts = {"cinv": inv.launches, "taylor": taylor.launches,
+              "taylor_chunks": taylor.chunk_launches}
+    path_launches["fom_value_and_grad numG=50"] = counts
+    print(f"phase 6 fom_value_and_grad numG={numG} ({n_fom} terms, schedule "
+          f"{n_s} slabs, {n_t} Taylor terms): launches {counts}, expected "
+          f"{expect} (the forward's; both backward passes are torch ops)")
+    require(all(v > 0 for v in counts.values()) and counts == expect,
+            f"fom_value_and_grad launches {counts}, expected {expect}")
+    require(f_gpu.dtype == g_gpu.dtype == torch.float32 and f_gpu.ndim == 0
+            and g_gpu.shape == (2, 5) and bool(torch.isfinite(g_gpu).all()),
+            f"fom_value_and_grad on CUDA: {f_gpu.dtype} {g_gpu.dtype} "
+            f"{tuple(g_gpu.shape)}")
+    f_cpu, g_cpu = fom_value_and_grad(gd, LAM, numG,
+                                      device="cpu")(gd.xyrra_list)
+    require(g_cpu.dtype == torch.float64, f"CPU gradient {g_cpu.dtype}")
+    d_fom = abs(f_gpu.item() - f_cpu.item())
+    d_grad = ((g_gpu.cpu().double() - g_cpu).norm() / g_cpu.norm()).item()
+    print(f"phase 6 fom_value_and_grad: fom cuda {f_gpu.item():.7f}, cpu "
+          f"complex128 {f_cpu.item():.7f}, |dfom| {d_fom:.3e} (bound "
+          f"{TOL_FOM}); |dgrad|/|grad| {d_grad:.3e} (bound {TOL_GRAD})")
+    print(f"phase 6 gradient cuda (per m, per rad): "
+          f"{np.array2string(g_gpu.cpu().numpy(), precision=5)}")
+    require(d_fom <= TOL_FOM, f"fom cuda vs cpu: {d_fom}")
+    require(d_grad <= TOL_GRAD, f"gradient cuda vs cpu: {d_grad}")
+    # the kernels at this path's own inputs (B = 1) against their plain
+    # versions, and timed against them in turns beside their bound
+    inv_caps = [A.detach()
+                for (A,) in capture(inv, "inv", lambda: vg(gd.xyrra_list))]
+    worst = max(rel_err(inv.inv_cuda(A), inv.inv_reference(A))[0]
+                for A in inv_caps)
+    tay_caps = capture(taylor, "taylor_factors", lambda: vg(gd.xyrra_list))
+    tay_worst = 0.0
+    with torch.no_grad():
+        for F, Gm, t_path, k in tay_caps:
+            for a, b in zip(taylor.taylor_factors(F, Gm, t_path, k),
+                            taylor.taylor_factors_reference(F, Gm, t_path,
+                                                            k)):
+                tay_worst = max(tay_worst, ((a - b).abs().max()
+                                            / b.abs().max()).item())
+    print(f"phase 6 kernels at the fom_value_and_grad inputs (B=1): worst "
+          f"inverse rel err vs plain {worst:.3e} (bound {TOL_INV}), Taylor "
+          f"{tay_worst:.3e} (bound {TOL_TAYLOR})")
+    require(worst <= TOL_INV and tay_worst <= TOL_TAYLOR,
+            f"kernels at the B=1 inputs: {worst}, {tay_worst}")
+    F, Gm, t_path, k = (x.detach() if torch.is_tensor(x) else x
+                        for x in tay_caps[0])
+    A1 = next(A for A in inv_caps if A.shape[-1] == 2 * numG)
+    k_ms, p_ms = ab_ms(lambda: inv.inv_reference(A1),
+                       lambda: inv.inv_cuda(A1), 20)
+    n1 = A1.shape[-1]
+    b_ms, b_by = bound_ms(8 * n1 ** 3, 2 * 8 * n1 * n1)
+    results["cinv"]["sizes"].append(dict(
+        path="fom_value_and_grad", numG=numG, n=n1, B=1, ms=k_ms,
+        plain_ms=p_ms, library_ms=p_ms, bound_ms=b_ms, bound_by=b_by))
+    coeffs1 = taylor.coeff_table(t_path, k, 1, dev)
+    k_ms2, p_ms2 = ab_ms(
+        lambda: taylor.taylor_factors_reference(F, Gm, t_path, k),
+        lambda: taylor.taylor_factors_cuda(F, Gm, coeffs1, k), 20)
+    s1, r1 = taylor._ps_split(k)
+    flops1 = (1 + (s1 - 1) + 3 * (r1 - 1) + 4) * 8 * n1 ** 3
+    b_ms2, b_by2 = bound_ms(flops1, 6 * 8 * n1 * n1)
+    results["taylor"]["sizes"].append(dict(
+        path="fom_value_and_grad", n=n1, B=1, terms=k, ms=k_ms2,
+        plain_ms=p_ms2, library_ms=None, bound_ms=b_ms2, bound_by=b_by2))
+    print(f"phase 6 time B=1 n={n1}: inverse kernel {k_ms:.4f} ms, "
+          f"torch.linalg.inv {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
+          f"Taylor ({k} terms) kernels {k_ms2:.4f} ms, plain {p_ms2:.4f} ms,"
+          f" bound {b_ms2:.5f} ms ({b_by2}, products only)")
+    del inv_caps, tay_caps, F, Gm, A1
+    vg_ms = batch_ms(lambda: vg(gd.xyrra_list))
+    print(f"phase 6 fom_value_and_grad numG={numG} B=1: {vg_ms:.3f} ms per "
+          f"call (best of 3 windows of 2 calls)")
+    profile_split(lambda: vg(gd.xyrra_list),
+                  f"fom_value_and_grad numG={numG}", vg_ms)
+
+    # 6.4: optimize_gradient, 20 steps at numG = 50 on CUDA
+    f_start = fom_of_grating(gd, LAM, numG)
+    t0 = time.perf_counter()
+    g_opt = optimize_gradient(gd, LAM, steps=20, numG=numG, verbose=False)
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    f_opt = fom_of_grating(g_opt, LAM, numG)
+    print(f"phase 6 optimize_gradient 20 steps numG={numG}: fom "
+          f"{f_start:.6f} -> {f_opt:.6f}, {opt_s * 1e3 / 20:.1f} ms per step "
+          f"({opt_s:.2f} s)")
+    require(validate(g_opt), "optimize_gradient's result fails validate")
+    require(f_opt > f_start, f"optimize_gradient: {f_start} -> {f_opt}")
+
+    # 6.5: one vary_angle member (cyl, derivative-free, 20 optimize2
+    # attempts); end_angle between the first and the second rung
+    rung = [math.asin(LAM / (LX * 1.01 ** k)) for k in (1, 2)]
+    opt_module.probe_batches = 0
+    t0 = time.perf_counter()
+    gc = vary_angle(gd, sum(rung) / 2, "cyl", LAM, numG=numG,
+                    optimize2_attempts=20, verbose=False,
+                    rng=np.random.default_rng(3))
+    torch.cuda.synchronize()
+    vary_s = time.perf_counter() - t0
+    batches = opt_module.probe_batches
+    require(len(gc.grating_list) == 2, f"vary_angle made "
+            f"{len(gc.grating_list) - 1} members, expected 1")
+    member = gc.grating_list[-1]
+    seed = resize(gd, GratingCollection(LAM, LY, "cyl", [gd.copy()])
+                  .get_one(grating_period=LX * 1.01))
+    ok = validate(member, similar_to=seed.xyrra_list, how_similar=0.03)
+    # both in one batch of the probes' own size (20, padded by repetition)
+    # through the probes' own function, so the comparison sees the values
+    # the optimizers accepted
+    pair = fom_batch_fn(seed, LAM, numG)(np.stack(
+        [seed.xyrra_list] + [member.xyrra_list] * 19))[:2].cpu().numpy()
+    print(f"phase 6 vary_angle one member (cyl, {seed.grating_period / NM:.1f}"
+          f" nm, optimize2_attempts=20): {vary_s:.2f} s, {batches} probe "
+          f"batches of 20 cells; fom {pair[0]:.6f} (resized start) -> "
+          f"{pair[1]:.6f}; validate under the 3% trust region: {ok}")
+    require(ok, "the vary_angle member fails validate")
+    require(pair[1] >= pair[0], f"vary_angle member fom {pair}")
+    print(f"phase 6 design loop: {time.perf_counter() - t6:.2f} s")
+
+    # launches: the sum over the counted runs of each path
     kernels = [dict(name=name,
                     launches=sum(c[name] for c in path_launches.values()),
                     launches_by_path={p: c[name]

@@ -3,14 +3,14 @@
 The port never imports the JAX package, so a cell crosses over as plain
 numbers: SI floats for the periods and the height, the index attributes
 (0 = tabulated dispersion) and the (nE, 5) ``xyrra`` array in metres and
-radians.
+radians; a collection as its own scalars and its members.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .grating import Grating
+from .grating import Grating, GratingCollection
 
 
 def grating_from_arrays(lateral_period, grating_period, cyl_height, n_glass,
@@ -30,3 +30,14 @@ def grating_from_reference(g) -> Grating:
     return grating_from_arrays(g.lateral_period, g.grating_period,
                                g.cyl_height, g.n_glass, g.n_tio2,
                                np.asarray(g.xyrra_list))
+
+
+def collection_from_reference(gc) -> GratingCollection:
+    """A port :class:`GratingCollection` from any object with the
+    attributes ``target_wavelength``, ``lateral_period``, ``lens_type`` and
+    ``grating_list`` -- e.g. a ``metalens_tpu.GratingCollection`` -- each
+    member carried across by :func:`grating_from_reference`."""
+    return GratingCollection(
+        target_wavelength=float(gc.target_wavelength),
+        lateral_period=float(gc.lateral_period), lens_type=gc.lens_type,
+        grating_list=[grating_from_reference(g) for g in gc.grating_list])

@@ -5,6 +5,8 @@ eagerly, so there are no cached programs: :func:`_fom_eval` is one batched
 evaluation of the multi-wavelength FOM for a batch of cell geometries,
 sharing the wavelength-independent structure factor (and NV projector)
 across the terms.  Both polarizations come out of one solve per term.
+:func:`fom_value_and_grad` differentiates it by autograd, through the
+kernels' own backward passes (``InverseFn``, ``TaylorFn``) on the card.
 
 Every entry point takes ``device=`` (default ``"cuda"``, where the
 hand-written kernels run; it raises when torch has no CUDA device, and
@@ -75,6 +77,27 @@ def static_solve_config(g, wavelengths, numG, dtype: torch.dtype):
                                          g.lateral_period, lam_min, eps_max,
                                          dtype=dtype)
     return orders, n_slabs, taylor, hermitian
+
+
+def static_envelope(g, period_pairs, wavelengths, numG, *, dtype):
+    """Elementwise-max ``(Dx, Dy, n_slabs, taylor_terms)`` over explicit
+    ``(grating_period, lateral_period)`` pairs of ``g``'s material and
+    height: the static solve config that covers every listed cell, for
+    ``static_override``.  Oversizing each component is accuracy-safe (a
+    superset difference grid; more slabs lower the per-slab t*q; the max'd
+    series covers every member's per-slab norm).  The slab cap follows the
+    working ``dtype``, which is given explicitly (the JAX version reads it
+    from ``jax.config``)."""
+    Dx = Dy = ns = tt = 0
+    for gp, lp in period_pairs:
+        cell = g.copy()
+        cell.grating_period, cell.lateral_period = gp, lp
+        orders, n_slabs, taylor, _ = static_solve_config(cell, wavelengths,
+                                                         numG, dtype)
+        dx, dy = _order_bounds(orders)
+        Dx, Dy = max(Dx, dx), max(Dy, dy)
+        ns, tt = max(ns, n_slabs), max(tt, taylor)
+    return Dx, Dy, ns, tt
 
 
 def _order_bounds(orders):
@@ -226,6 +249,38 @@ def fom_of_grating(g, target_wavelength=None, numG: int = 50,
                     small_u=small_u_ok(g, orders, xyrra=xyrra), fff=fff,
                     hermitian_eps=hermitian)
     return float(val[0])
+
+
+def fom_value_and_grad(g, target_wavelength=None, numG: int = 50,
+                       terms=None, taylor_terms: int | None = None,
+                       fff: bool = True, *, device="cuda", dtype=None):
+    """Return a function ``xyrra (nE, 5) -> (fom, d fom / d xyrra)``: a 0-d
+    and an (nE, 5) real tensor on ``device``.  Exact shape derivatives by
+    autograd through the whole solve, NV correction included; on CUDA the
+    kernels run the forward and their backward passes carry the
+    gradient."""
+    device = _device(device)
+    cdt = cpx.complex_dtype(device, dtype)
+    rdt = cpx.real_dtype(cdt)
+    orders, n_slabs, taylor, hermitian, tgt, inph, per_term = _fom_inputs(
+        g, target_wavelength, numG, terms, cdt)
+    Dx, Dy = _order_bounds(orders)
+    small_u0 = small_u_ok(g, orders)
+    g_max = _diff_g_max(g, orders)
+    mx, my, i0 = _order_tensors(orders, device)
+
+    def vg(xyrra):
+        x = torch.as_tensor(xyrra, dtype=rdt).to(device).detach().clone()
+        x.requires_grad_(True)
+        fom = _fom_eval(x[None], mx, my, i0, tgt, g.grating_period,
+                        g.lateral_period, g.cyl_height, *per_term,
+                        N=len(orders), Dx=Dx, Dy=Dy, n_slabs=n_slabs,
+                        taylor_terms=taylor_terms or taylor, inphase=inph,
+                        small_u=_small_u_now(small_u0, g_max, x.detach()),
+                        fff=fff, hermitian_eps=hermitian)[0]
+        grad, = torch.autograd.grad(fom, x)
+        return fom.detach(), grad
+    return vg
 
 
 def fom_batch_fn(g, target_wavelength=None, numG: int = 50, terms=None,

@@ -10,8 +10,12 @@ above (see the note at the top of that file).  The TPU-only machinery -- padding
 sizes, interleave groups, the ``custom_vmap`` rule -- has no job here.
 
 :func:`inv` routes by device only: a CPU tensor goes to the plain version
-:func:`inv_reference` (``torch.linalg.inv``), a CUDA tensor to the kernel,
-which raises on anything it does not take.  There is no fallback.
+:func:`inv_reference` (``torch.linalg.inv``, which has its own autograd), a
+CUDA tensor through :class:`InverseFn` to the kernel, which raises on
+anything it does not take.  There is no fallback.  The gradient is
+:class:`InverseFn`'s backward: two matrix products on the saved inverse, as
+the JAX package's VJP (``pallas_inv.py:351-365``) is two XLA products
+outside the kernel.
 """
 
 from __future__ import annotations
@@ -43,7 +47,8 @@ def inv_reference(A: torch.Tensor) -> torch.Tensor:
 
 def inv_cuda(A: torch.Tensor) -> torch.Tensor:
     """Inverse of each (n, n) complex64 matrix of a contiguous CUDA batch
-    (..., n, n), n <= 256, by the hand-written kernel.  Forward only."""
+    (..., n, n), n <= 256, by the hand-written kernel.  Forward only: a
+    gradient goes through :class:`InverseFn` (:func:`inv`)."""
     global launches
     if not A.is_cuda:
         raise ValueError(f"inv_cuda needs a CUDA tensor, got {A.device}")
@@ -58,8 +63,8 @@ def inv_cuda(A: torch.Tensor) -> torch.Tensor:
         raise ValueError("inv_cuda needs a contiguous tensor")
     if torch.is_grad_enabled() and A.requires_grad:
         raise NotImplementedError(
-            "the CUDA inverse is forward-only: its backward pass is not "
-            "ported yet (ROADMAP.md, queue 2)")
+            "inv_cuda is forward-only: take the gradient through inv() "
+            "(InverseFn)")
     out = torch.empty_like(A)
     batch = A.numel() // (n * n)
     lib = _cuda.load("cinv", _SIGNATURES)
@@ -72,11 +77,32 @@ def inv_cuda(A: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class InverseFn(torch.autograd.Function):
+    """W = A^-1 by the given forward routine (``inv_cuda`` on the card, or
+    the plain :func:`inv_reference`), with the gradient of the inverse:
+    grad_A = -W^H grad_W W^H.  That is torch's conjugate-Wirtinger
+    convention, the adjoint of dW = -W dA W; the JAX formula differs by its
+    complex cotangent convention."""
+
+    @staticmethod
+    def forward(ctx, A, inverse):
+        W = inverse(A)
+        ctx.save_for_backward(W)
+        return W
+
+    @staticmethod
+    def backward(ctx, grad_W):
+        W, = ctx.saved_tensors
+        Wh = W.mH
+        return -torch.matmul(torch.matmul(Wh, grad_W), Wh), None
+
+
 def inv(A: torch.Tensor) -> torch.Tensor:
-    """Inverse of every matrix of the batch: the kernel for a CUDA tensor,
-    the plain version for a CPU tensor."""
+    """Inverse of every matrix of the batch: the kernel (under
+    :class:`InverseFn`) for a CUDA tensor, the plain version for a CPU
+    tensor."""
     if A.is_cuda:
-        return inv_cuda(A)
+        return InverseFn.apply(A, inv_cuda)
     if A.device.type == "cpu":
         return inv_reference(A)
     raise ValueError(f"no inverse for device {A.device}")

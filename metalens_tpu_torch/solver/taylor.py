@@ -15,9 +15,11 @@ coefficient table (:func:`coeff_table`), so t may vary along the batch.
 :func:`taylor_factors` routes by device only: a CPU tensor goes to the plain
 version :func:`taylor_factors_reference` (the twin of
 ``pallas_taylor.xla_factors`` and ``rcwa._shared_power_polys``), a CUDA
-tensor to :func:`taylor_factors_cuda`, which runs the launch plan of
-:func:`staged_factors` on the hand-written kernels of ``csrc/taylor.cu``
-and raises on anything it does not take.  There is no fallback.
+tensor through :class:`TaylorFn` to the launch plan of :func:`staged_factors`
+on the hand-written kernels of ``csrc/taylor.cu``, which raise on anything
+they do not take.  There is no fallback.  The gradient is :class:`TaylorFn`'s
+backward, a replay of the plain version under autograd, as the JAX
+package's VJP (``pallas_taylor.py:259-270``) replays ``xla_factors``.
 """
 
 from __future__ import annotations
@@ -67,16 +69,18 @@ def series_coefficients(terms: int):
             [(-1.0) ** (k + 1) / math.factorial(2 * k + 2) for k in ks])
 
 
-def coeff_table(t, terms: int, batch: int, device) -> torch.Tensor:
-    """(batch, 3, terms+1) float32 table of the three series' coefficients
-    with t^{2k} folded in; ``t`` is a number or a (batch,) tensor."""
+def coeff_table(t, terms: int, batch: int, device,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(batch, 3, terms+1) table of the three series' coefficients with
+    t^{2k} folded in (float32, what the chunk kernel reads, unless ``dtype``
+    says otherwise); ``t`` is a number or a (batch,) tensor."""
     t64 = torch.as_tensor(t, dtype=torch.float64).to(device)
     t64 = t64.reshape(-1, 1).expand(batch, 1)
     tp = t64 ** (2 * torch.arange(terms + 1, device=device,
                                   dtype=torch.float64))
     coeffs = torch.tensor(series_coefficients(terms), dtype=torch.float64,
                           device=device)
-    return (coeffs[None] * tp[:, None, :]).to(torch.float32).contiguous()
+    return (coeffs[None] * tp[:, None, :]).to(dtype).contiguous()
 
 
 def shared_power_polys(Y: torch.Tensor, I: torch.Tensor, coeff_lists):
@@ -123,7 +127,7 @@ def taylor_factors_reference(F: torch.Tensor, G: torch.Tensor, t,
     return CS, SS @ F, G @ SS, G @ (RS @ F)
 
 
-def _check_cuda_matrices(F: torch.Tensor, G: torch.Tensor):
+def _check_cuda_matrices(F: torch.Tensor, G: torch.Tensor, terms: int):
     for name, M in (("F", F), ("G", G)):
         if not M.is_cuda:
             raise ValueError(f"taylor_factors_cuda: {name} must be a CUDA "
@@ -133,15 +137,15 @@ def _check_cuda_matrices(F: torch.Tensor, G: torch.Tensor):
                             f"{name} is {M.dtype}")
         if not M.is_contiguous():
             raise ValueError(f"taylor_factors_cuda: {name} is not contiguous")
-        if torch.is_grad_enabled() and M.requires_grad:
-            raise NotImplementedError(
-                "the CUDA Taylor factors are forward-only: their backward "
-                "pass is not ported yet (ROADMAP.md, queue 2)")
     if F.ndim != 3 or F.shape != G.shape or F.shape[-1] != F.shape[-2]:
         raise ValueError(f"taylor_factors_cuda needs F, G of one shape "
                          f"(B, n, n), got {tuple(F.shape)}, {tuple(G.shape)}")
     if F.device != G.device:
         raise ValueError("taylor_factors_cuda: F and G on different devices")
+    if _ps_split(terms)[1] > MAX_CHUNKS:
+        raise ValueError(f"taylor_factors_cuda supports at most "
+                         f"{MAX_CHUNKS} Paterson-Stockmeyer chunks per "
+                         f"series (160 terms), got {terms} terms")
 
 
 def staged_factors(F: torch.Tensor, G: torch.Tensor, coeffs: torch.Tensor,
@@ -271,22 +275,51 @@ def taylor_factors_cuda(F: torch.Tensor, G: torch.Tensor,
     """(CS, SF, GS, GRF) of contiguous complex64 CUDA batches F, G
     (B, n, n) with the (B, 3, terms+1) float32 coefficient table of
     :func:`coeff_table`: the plan of :func:`staged_factors` on the
-    hand-written kernels.  Forward only."""
-    _check_cuda_matrices(F, G)
+    hand-written kernels.  Forward only: a gradient goes through
+    :class:`TaylorFn` (:func:`taylor_factors`)."""
+    _check_cuda_matrices(F, G, terms)
+    if torch.is_grad_enabled() and (F.requires_grad or G.requires_grad):
+        raise NotImplementedError(
+            "taylor_factors_cuda is forward-only: take the gradient through "
+            "taylor_factors() (TaylorFn)")
     _check_coeffs(coeffs, F.shape[0], terms, F.device)
-    if _ps_split(terms)[1] > MAX_CHUNKS:
-        raise ValueError(f"taylor_factors_cuda supports at most "
-                         f"{MAX_CHUNKS} Paterson-Stockmeyer chunks per "
-                         f"series (160 terms), got {terms} terms")
     return staged_factors(F, G, coeffs, terms, gemm_cuda, chunk_sums_cuda)
+
+
+class TaylorFn(torch.autograd.Function):
+    """(CS, SF, GS, GRF) by :func:`staged_factors` on the given primitives
+    (``gemm_cuda`` and ``chunk_sums_cuda`` on the card, or their plain
+    versions), with the gradient of :func:`taylor_factors_reference`: the
+    backward replays the plain version under autograd and pulls the four
+    cotangents back to F and G.  The replay is the design of the gradient,
+    not a fallback: the forward never leaves the given primitives.  t is
+    the slab thickness, not a design variable; its gradient is None."""
+
+    @staticmethod
+    def forward(ctx, F, G, t, terms, gemm, chunk_sums):
+        coeffs = coeff_table(t, terms, F.shape[0], F.device,
+                             dtype=F.real.dtype)
+        ctx.save_for_backward(F, G)
+        ctx.t, ctx.terms = t, terms
+        return staged_factors(F, G, coeffs, terms, gemm, chunk_sums)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        F, G = ctx.saved_tensors
+        with torch.enable_grad():
+            F_, G_ = F.detach().requires_grad_(), G.detach().requires_grad_()
+            outs = taylor_factors_reference(F_, G_, ctx.t, ctx.terms)
+            gF, gG = torch.autograd.grad(outs, (F_, G_), cotangents)
+        return gF, gG, None, None, None, None
 
 
 def taylor_factors(F: torch.Tensor, G: torch.Tensor, t, terms: int):
     """(CS, SF, GS, GRF) for F, G (B, n, n) and t (a number or (B,)): the
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    kernels (under :class:`TaylorFn`) for CUDA tensors, the plain version
+    for CPU tensors."""
     if F.is_cuda:
-        coeffs = coeff_table(t, terms, F.shape[0], F.device)
-        return taylor_factors_cuda(F, G, coeffs, terms)
+        _check_cuda_matrices(F, G, terms)
+        return TaylorFn.apply(F, G, t, terms, gemm_cuda, chunk_sums_cuda)
     if F.device.type == "cpu":
         return taylor_factors_reference(F, G, t, terms)
     raise ValueError(f"no Taylor factors for device {F.device}")

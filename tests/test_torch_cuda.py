@@ -158,3 +158,56 @@ def test_taylor_kernel_on_hot_path_matrices(cuda_device):
     with pytest.raises(TypeError):
         taylor.taylor_factors(F.to(torch.complex128), G.to(torch.complex128),
                               t, terms)
+
+
+def _max_rel(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [50, 100, 200])
+def test_inverse_backward_against_linalg_inv(cuda_device, n):
+    """InverseFn's gradient on the kernel's inverse against autograd
+    through torch.linalg.inv, with a random cotangent."""
+    gen = torch.Generator().manual_seed(10 + n)
+    noise = torch.view_as_complex(torch.randn(3, n, n, 2, generator=gen))
+    A = (torch.eye(n) + 0.4 * noise / math.sqrt(n)).to(torch.complex64)
+    ct = torch.view_as_complex(torch.randn(3, n, n, 2, generator=gen))
+    A, ct = A.to(cuda_device), ct.to(torch.complex64).to(cuda_device)
+    A_k, A_r = A.clone().requires_grad_(), A.clone().requires_grad_()
+    before = inv.launches
+    got, = torch.autograd.grad(inv.inv(A_k), A_k, ct)
+    assert inv.launches == before + 1
+    want, = torch.autograd.grad(torch.linalg.inv(A_r), A_r, ct)
+    assert got.dtype == torch.complex64
+    assert _max_rel(got, want) < 1e-4
+
+
+@pytest.mark.cuda
+def test_taylor_backward_against_reference_autograd(cuda_device):
+    """TaylorFn's gradient (the kernels forward, the plain replay backward)
+    against autograd through taylor_factors_reference; the direct kernel
+    entry still refuses a gradient."""
+    gen = torch.Generator().manual_seed(11)
+    n, terms = 100, 20
+    F, G, *cts = (0.35 * torch.view_as_complex(
+        torch.randn(4, n, n, 2, generator=gen)).to(torch.complex64)
+        .to(cuda_device) for _ in range(6))
+    t = torch.tensor([0.3, 0.5, 0.7, 0.9])
+    leaves_k = [M.clone().requires_grad_() for M in (F, G)]
+    leaves_r = [M.clone().requires_grad_() for M in (F, G)]
+    before = taylor.launches, taylor.chunk_launches
+    got = torch.autograd.grad(taylor.taylor_factors(*leaves_k, t, terms),
+                              leaves_k, cts)
+    assert taylor.launches > before[0]
+    assert taylor.chunk_launches == before[1] + 1
+    want = torch.autograd.grad(
+        taylor.taylor_factors_reference(*leaves_r, t.to(cuda_device), terms),
+        leaves_r, cts)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.complex64
+        assert _max_rel(g, w) < 2e-5
+    with pytest.raises(NotImplementedError):
+        taylor.taylor_factors_cuda(leaves_k[0], G,
+                                   taylor.coeff_table(t, terms, 4,
+                                                      cuda_device), terms)

@@ -8,7 +8,8 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import metalens_tpu_torch, metalens_tpu_torch.engine, "
-        "metalens_tpu_torch.convert\n"
+        "metalens_tpu_torch.convert, metalens_tpu_torch.grating, "
+        "metalens_tpu_torch.optimize\n"
         "from metalens_tpu_torch.solver import basis, cpx, epsilon, fff, "
         "fom, inv, orders, rcwa, special, taylor\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
