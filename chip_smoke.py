@@ -16,17 +16,23 @@ and prints the torch.profiler device time by kernel of each.  Phase 6 drives
 the design loop: the kernels' backward passes against autograd through the
 plain versions, ``fom_value_and_grad`` on the card against the CPU in
 complex128 (launches counted, timed, profiled forward and backward),
-``optimize_gradient`` for 20 steps and one ``vary_angle`` member.
+``optimize_gradient`` for 20 steps and one ``vary_angle`` member.  Phase 7
+drives the amplitude databases at characterize's own width (numG = 100,
+n = 200): a 4-member ``GratingCollection`` at u_steps = 5, 580 nm and then a
+joint 450/650 nm sweep, and a 20-entry ``HexGridSet``; it holds entries to
+the CPU in complex128, the kernels to their plain versions on the
+characterize path's own inputs, and the interpolators on the card to tables
+built on the CPU, and it counts, times and profiles the member sweeps.
 
     python3 chip_smoke.py
 
 Every phase is fatal: a failed check exits nonzero.  The last two lines of
 standard output are a JSON object describing each kernel (launches in the
-counted runs of the main path at numG = 50 and numG = 100 and of one
-``fom_value_and_grad`` call, summed and per path, with the inverse's per
-route; error against the plain version; times
-and bound at the main path's bench size, and the same per size under
-``sizes``) and
+counted runs of the main path at numG = 50 and numG = 100, of one
+``fom_value_and_grad`` call and of the characterize sweeps, summed and per
+path, with the inverse's per route; error against the plain version;
+times and bound at the main path's bench size, and the same per size
+under ``sizes``) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits nonzero
 before printing any result.  Imports nothing of JAX.
 """
@@ -57,6 +63,10 @@ TOL_GRAD = 2e-3       # and the relative norm of the gradient's difference
 # pillars inside the fabrication constraints (validate), in nm and degrees
 DESIGN_NM_DEG = [[-215., 2., 144., 105., 0.], [196., -8., 100., 102., 6.]]
 BATCH = 1024
+CHAR_NUMG = 100       # characterize's own default (metalens_tpu/grating.py)
+HEX_ENTRIES = 20      # benchmarks/run_configs.py config 1 at full scale
+TOL_INTERP = 1e-5     # interpolators on the card vs complex128, of table max
+AMPS = ("ampfy", "ampfx", "ampry", "amprx")
 PEAK_F32 = 67e12          # flop/s, f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
@@ -256,6 +266,350 @@ def profile_split(fn, label, wall_ms, rows=6):
     return device_total / 1e3, split
 
 
+@contextlib.contextmanager
+def cpu_threads(n):
+    """torch's CPU thread count set to n for the block: CPU work at n = 200
+    runs single-threaded (some CPU builds of torch hang in a multi-threaded
+    batched inverse of that size)."""
+    import torch
+    saved = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
+
+
+def _entry_key(e):
+    return (e["wavelength_in_nm"], e["x_or_y"], e["ux"], e["uy"], e["ox"],
+            e["oy"])
+
+
+def db_err(got, want):
+    """Largest amplitude difference between the entries of ``want`` and
+    the entries of ``got`` with the same key; every key of ``want`` must be
+    in ``got``."""
+    index = {_entry_key(e): e for e in got}
+    worst = 0.0
+    for e in want:
+        g = index.get(_entry_key(e))
+        require(g is not None, f"entry {_entry_key(e)} missing from the "
+                f"card's database")
+        worst = max(worst, max(abs(g[k] - e[k]) for k in AMPS))
+    return worst
+
+
+def taylor_work(n, B, n_terms):
+    """Flops and bytes of one Taylor call (B matrices of n x n, n_terms
+    terms): the products of the launch plan (8 n^3 flops each), the
+    coefficient x power terms of the chunks (4 flops an entry) and the
+    Horner epilogue adds (2 flops an entry); F and G read, the four factors
+    written, and the coefficient table.  Also the count of products (GEMM
+    launches) and of coefficient x power terms."""
+    from metalens_tpu_torch.solver import taylor
+    s, r = taylor._ps_split(n_terms)
+    products = 1 + (s - 1) + 3 * (r - 1) + 4
+    power_terms = sum(1 for p in range(3) for k in range(n_terms + 1)
+                      if k % s)
+    flops = (products * 8 * n ** 3
+             + (4 * power_terms + 2 * 3 * (r - 1)) * n * n) * B
+    nbytes = 6 * 8 * n * n * B + B * 3 * (n_terms + 1) * 4
+    return flops, nbytes, products, power_terms
+
+
+def interp_errors(tables, tables_cpu, pts, by_key):
+    """Worst error of the card's interpolators (complex64) at ``pts``
+    against the same tables built on the CPU in complex128, and at the
+    grid nodes against the stored entries (``by_key``: key -> rows of
+    (ux, uy, third axis, amplitude)), each as a share of the table's
+    largest entry."""
+    import torch
+    rand = node = 0.0
+    for key, f in tables.items():
+        require(f.values.is_cuda and f.values.dtype == torch.complex64,
+                f"interpolator {key}: {f.values.device} {f.values.dtype}")
+        ref = tables_cpu[key]
+        scale = float(ref.values.abs().max()) or 1.0
+        rand = max(rand, float(np.abs(f(pts) - ref(pts)).max()) / scale)
+        if key not in by_key:     # an order kept at no direction
+            require(not bool(f.values.abs().max() > 0), f"table {key}")
+            continue
+        rows = np.array(by_key[key])
+        node = max(node, float(np.abs(f(rows[:, :3].real) - rows[:, 3]).max())
+                   / scale)
+    return rand, node
+
+
+def characterize_phase(dev, gd, results, path_launches, reset_counts,
+                       launch_counts):
+    """Phase 7: the amplitude databases on the card at numG = 100."""
+    import torch
+    from metalens_tpu_torch import (GratingCollection, HexGridSet, resize,
+                                    validate)
+    from metalens_tpu_torch.characterize import (
+        build_collection_interpolators, build_hexgrid_interpolators)
+    from metalens_tpu_torch.engine import (_direction_grid,
+                                           characterize_grating,
+                                           static_solve_config)
+    from metalens_tpu_torch.grating import Grating
+    from metalens_tpu_torch.solver import inv, taylor
+    t7 = time.perf_counter()
+    rgb = [450 * NM, 650 * NM]
+
+    # 7.1: a 4-member collection from the design cell at distinct periods
+    members = [resize(gd, Grating(lateral_period=LY, grating_period=LX * f,
+                                  cyl_height=H))
+               for f in (1.0, 0.97, 0.94, 0.91)]
+    gc = GratingCollection(LAM, LY, "cyl", members)
+    periods = [g.grating_period for g in gc.grating_list]
+    require(len(set(periods)) == 4 and all(validate(g) for g in members),
+            f"collection members: periods {periods}")
+    # the sweep of GratingCollection.characterize
+    sweep = dict(ux_min=max(-0.99, gc.get_innermost().get_angle_in_air(LAM)
+                            - 0.25),
+                 ux_max=min(0.99, gc.get_outermost().get_angle_in_air(LAM)
+                            + 0.25),
+                 uy_min=-0.2, uy_max=0.2, u_steps=5, numG=CHAR_NUMG)
+    ux_grid, uy_grid = _direction_grid(sweep["ux_min"], sweep["ux_max"],
+                                       -0.2, 0.2, 5)
+    n_dir = len(ux_grid)
+
+    def expected(glist, lams):
+        """Launches of one sweep per member: per wavelength <<1/eps>>^-1,
+        one batch of E^-1 at N; at 2N the slab, each doubling, the inner
+        and the outer star; one Taylor call."""
+        out = {"cinv": 0, "taylor": 0, "taylor_chunks": 0}
+        for g in glist:
+            _, ns, nt, _ = static_solve_config(g, lams, CHAR_NUMG,
+                                               torch.complex64)
+            out["cinv"] += len(lams) + 1 + 3 + int(math.log2(ns))
+            out["taylor"] += taylor_work(2 * CHAR_NUMG, 1, nt)[2]
+            out["taylor_chunks"] += 1
+        return out
+
+    sweeps = {}
+    for label, run, glist, lams, cells in (
+            ("characterize", lambda: gc.characterize(
+                LAM, numG=CHAR_NUMG, u_steps=5), members, [LAM], n_dir),
+            ("characterize 450+650 nm", lambda: gc.characterize(
+                rgb, numG=CHAR_NUMG, u_steps=5, append=True), members, rgb,
+             2 * n_dir)):
+        reset_counts()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = launch_counts()
+        want = expected(glist, lams)
+        path_launches[label] = c
+        results["cinv"]["route_launches_by_path"][label] = dict(
+            inv.route_launches)
+        sweeps[label] = wall
+        print(f"phase 7 {label} numG={CHAR_NUMG} u_steps=5 ({n_dir} "
+              f"directions, B={cells} per member): {len(glist)} members in "
+              f"{wall:.3f} s, {wall / len(glist) * 1e3:.1f} ms per member "
+              f"sweep, {len(glist) * cells / wall:.1f} cells/s; launches "
+              f"{c} (expected {want}), per member sweep "
+              f"{ {k: v / len(glist) for k, v in c.items()} }")
+        require(all(v > 0 for v in c.values()) and c == want,
+                f"{label}: launches {c}, expected {want}")
+    for g in gc.grating_list:
+        lam_set = {e["wavelength_in_nm"] for e in g.data}
+        finite = all(np.isfinite(e[k]) for e in g.data for k in AMPS)
+        require(lam_set == {450.0, 580.0, 650.0} and finite,
+                f"database of {g.grating_period / NM:.1f} nm: wavelengths "
+                f"{lam_set}, finite {finite}")
+        for lam in (450.0, 580.0, 650.0):
+            dirs = {(e["ux"], e["uy"]) for e in g.data
+                    if e["wavelength_in_nm"] == lam}
+            require(len(dirs) == n_dir, f"{lam} nm: {len(dirs)} directions")
+    m0 = gc.grating_list[0]
+    one = dict(sweep, wavelength=LAM)
+    ms = batch_ms(lambda: characterize_grating(m0, **one))
+    print(f"phase 7 one member sweep at 580 nm (B={n_dir}, "
+          f"n={2 * CHAR_NUMG}): {ms:.3f} ms ({n_dir / ms * 1e3:.1f} "
+          f"cells/s; best of 3 windows of 2 calls)")
+    profile_split(lambda: characterize_grating(m0, **one),
+                  f"characterize member sweep B={n_dir}", ms)
+
+    # 7.2: the 20-entry HexGridSet, one member sweep (B = 1) per entry
+    hgs = HexGridSet(sep=320 * NM, cyl_height=550 * NM,
+                     num_entries=HEX_ENTRIES)
+    reset_counts()
+    t0 = time.perf_counter()
+    hgs.characterize(wavelength=LAM, numG=CHAR_NUMG, just_normal=True)
+    torch.cuda.synchronize()
+    hex_s = time.perf_counter() - t0
+    c = launch_counts()
+    want = expected(hgs.grating_list, [LAM])
+    path_launches["characterize hexgrid"] = c
+    results["cinv"]["route_launches_by_path"]["characterize hexgrid"] = dict(
+        inv.route_launches)
+    require(all(v > 0 for v in c.values()) and c == want,
+            f"HexGridSet launches {c}, expected {want}")
+    xa = hgs.x_amp_list
+    require(xa.shape == (HEX_ENTRIES,) and bool(np.isfinite(xa).all()),
+            f"x_amp_list {xa.shape}")
+    span = float(abs(np.unwrap(np.angle(xa))[-1] - np.angle(xa[0])))
+    print(f"phase 7 HexGridSet {HEX_ENTRIES} entries numG={CHAR_NUMG} "
+          f"just_normal: {hex_s:.3f} s in all, {hex_s / HEX_ENTRIES * 1e3:.1f}"
+          f" ms per member sweep (B=1); launches {c} (expected {want}); "
+          f"|x_amp| {np.abs(xa).min():.4f}..{np.abs(xa).max():.4f}, phase "
+          f"span {span:.3f} rad")
+    h0 = hgs.grating_list[0]
+    hex_one = dict(ux_min=0.001, ux_max=0.001, uy_min=0.001, uy_max=0.001,
+                   u_steps=1, wavelength=LAM, numG=CHAR_NUMG,
+                   just_normal=True)
+    ms1 = batch_ms(lambda: characterize_grating(h0, **hex_one))
+    print(f"phase 7 one HexGridSet member sweep (B=1, n={2 * CHAR_NUMG}): "
+          f"{ms1:.3f} ms")
+    profile_split(lambda: characterize_grating(h0, **hex_one),
+                  "characterize hexgrid member sweep B=1", ms1)
+
+    # 7.3: entries against the CPU in complex128: one member at every
+    # direction at 580 nm, three directions of the joint sweep, and the
+    # first and last HexGridSet entries
+    t0 = time.perf_counter()
+    with cpu_threads(1):
+        ref = characterize_grating(m0, **one, device="cpu")
+        err_dir = db_err(m0.data, ref)
+        require(len(ref) == sum(1 for e in m0.data
+                                if e["wavelength_in_nm"] == 580.0),
+                "the CPU sweep kept other orders than the card's")
+        err_rgb = 0.0
+        picks = sorted({0, n_dir // 2, n_dir - 1})
+        for b in picks:
+            err_rgb = max(err_rgb, db_err(m0.data, characterize_grating(
+                m0, ux_grid[b], ux_grid[b], uy_grid[b], uy_grid[b], 1, rgb,
+                CHAR_NUMG, device="cpu")))
+        err_hex = max(db_err(g.data, characterize_grating(
+            g, **hex_one, device="cpu"))
+            for g in (hgs.grating_list[0], hgs.grating_list[-1]))
+    print(f"phase 7 vs CPU complex128 ({time.perf_counter() - t0:.1f} s, one "
+          f"thread): member {m0.grating_period / NM:.1f} nm all {n_dir} "
+          f"directions at 580 nm max err {err_dir:.3e}; {len(picks)} "
+          f"directions x 2 wavelengths of the joint sweep {err_rgb:.3e}; "
+          f"HexGridSet entries 1 and {HEX_ENTRIES} {err_hex:.3e} (bound "
+          f"{TOL_GUARD})")
+    require(max(err_dir, err_rgb, err_hex) <= TOL_GUARD,
+            f"characterize vs CPU: {err_dir}, {err_rgb}, {err_hex}")
+
+    # 7.4: the kernels at the characterize path's own inputs: the joint
+    # sweep of one member (t takes two values along the Taylor batch), a
+    # three-wavelength cell (t takes three) and a HexGridSet member (B = 1)
+    joint = dict(sweep, wavelength=rgb)
+    three = (ux_grid[0], ux_grid[0], uy_grid[0], uy_grid[0], 1,
+             [450 * NM, LAM, 650 * NM], CHAR_NUMG)
+    inv_caps = [a for run in (lambda: characterize_grating(m0, **joint),
+                              lambda: characterize_grating(h0, **hex_one))
+                for (a,) in capture(inv, "inv", run)]
+    tay_caps = [c for run in (lambda: characterize_grating(m0, **joint),
+                              lambda: characterize_grating(m0, *three),
+                              lambda: characterize_grating(h0, **hex_one))
+                for c in capture(taylor, "taylor_factors", run)]
+    worst = 0.0
+    for A in inv_caps:
+        W, R = inv.inv_cuda(A), inv.inv_reference(A)
+        worst = max(worst, rel_err(W, R)[0])
+        results["cinv"]["max_abs_err"] = max(results["cinv"]["max_abs_err"],
+                                             (W - R).abs().max().item())
+    tay_worst = 0.0
+    t_values = []
+    for F, Gm, t, k in tay_caps:
+        t_values.append(len(set(torch.as_tensor(t).flatten().tolist())))
+        for a, b in zip(taylor.taylor_factors(F, Gm, t, k),
+                        taylor.taylor_factors_reference(F, Gm, t, k)):
+            tay_worst = max(tay_worst, ((a - b).abs().max()
+                                        / b.abs().max()).item())
+            results["taylor"]["max_abs_err"] = max(
+                results["taylor"]["max_abs_err"], (a - b).abs().max().item())
+    print(f"phase 7 kernels at the characterize inputs: {len(inv_caps)} "
+          f"inverse batches (n, B: "
+          f"{sorted({(A.shape[-1], A.shape[0]) for A in inv_caps})}) worst "
+          f"rel err vs plain {worst:.3e} (bound {TOL_INV}); Taylor batches "
+          f"B={[c[0].shape[0] for c in tay_caps]} with {t_values} distinct t,"
+          f" max-normalized err {tay_worst:.3e} (bound {TOL_TAYLOR})")
+    require(t_values == [2, 3, 1], f"distinct t per Taylor batch {t_values}")
+    require(worst <= TOL_INV and tay_worst <= TOL_TAYLOR,
+            f"kernels at the characterize inputs: {worst}, {tay_worst}")
+    # times in turns against the plain versions, beside the bound, at every
+    # size of the path
+    timed = set()
+    for A in inv_caps:
+        n, B = A.shape[-1], A.shape[0]
+        if (n, B) in timed:
+            continue
+        timed.add((n, B))
+        k_ms, p_ms = ab_ms(lambda: inv.inv_reference(A),
+                           lambda: inv.inv_cuda(A), 20)
+        b_ms, b_by = bound_ms(8 * n ** 3 * B, 2 * 8 * n * n * B)
+        results["cinv"]["sizes"].append(dict(
+            path="characterize", numG=CHAR_NUMG, n=n, B=B, ms=k_ms,
+            plain_ms=p_ms, library_ms=p_ms, bound_ms=b_ms, bound_by=b_by))
+        print(f"phase 7 time inverse n={n} B={B}: kernel {k_ms:.4f} ms, "
+              f"torch.linalg.inv {p_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by})")
+    for F, Gm, t, k in tay_caps:
+        n, B = F.shape[-1], F.shape[0]
+        coeffs = taylor.coeff_table(t, k, B, dev)
+        td = torch.as_tensor(t).to(dev) if torch.is_tensor(t) else t
+        k_ms, p_ms = ab_ms(
+            lambda: taylor.taylor_factors_reference(F, Gm, td, k),
+            lambda: taylor.taylor_factors_cuda(F, Gm, coeffs, k), 10)
+        flops, nbytes, products, _ = taylor_work(n, B, k)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        results["taylor"]["sizes"].append(dict(
+            path="characterize", n=n, B=B, terms=k,
+            distinct_t=len(set(torch.as_tensor(t).flatten().tolist())),
+            ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+            bound_by=b_by))
+        print(f"phase 7 time Taylor n={n} B={B} terms={k}: kernels "
+              f"{k_ms:.4f} ms ({products} GEMM launches + 1 chunk pass), "
+              f"plain {p_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by})")
+    del inv_caps, tay_caps
+
+    # 7.5: the interpolators on the card against the CPU's complex128
+    # tables, at 1,000 random in-bounds points and at the stored entries
+    rng = np.random.default_rng(7)
+    checks = {}
+    for name, obj, build_cpu, amps, third in (
+            ("collection", gc, build_collection_interpolators,
+             ("ampfy", "ampfx"), lambda k, g: g.grating_period),
+            ("hexgrid", hgs, build_hexgrid_interpolators, AMPS,
+             lambda k, g: float(k))):
+        t0 = time.perf_counter()
+        tables = obj.build_interpolators()
+        build_s = time.perf_counter() - t0
+        tables_cpu, bounds = build_cpu(obj, device="cpu")
+        require(obj.interpolator_bounds == bounds
+                and list(tables) == list(tables_cpu),
+                f"{name} interpolators: bounds or keys differ from the CPU's")
+        lo, hi = np.array(bounds[0::2]), np.array(bounds[1::2])
+        pts = lo + rng.random((1000, 3)) * (hi - lo)
+        by_key = {}
+        for k, g in enumerate(obj.grating_list):
+            for e in g.data:
+                for amp in amps:
+                    by_key.setdefault(
+                        (round(e["wavelength_in_nm"]), (e["ox"], e["oy"]),
+                         e["x_or_y"], amp), []).append(
+                        (e["ux"], e["uy"], third(k, g), e[amp]))
+        rand, node = interp_errors(tables, tables_cpu, pts, by_key)
+        checks[name] = rand, node
+        print(f"phase 7 {name} interpolators: {len(tables)} tables on the "
+              f"card built in {build_s:.3f} s; 1000 random in-bounds points "
+              f"vs complex128 tables max err {rand:.3e} of the table's max "
+              f"(bound {TOL_INTERP}); stored entries at the nodes "
+              f"{node:.3e} (bound {np.finfo(np.float32).eps:.3e})")
+        require(rand <= TOL_INTERP and node <= np.finfo(np.float32).eps,
+                f"{name} interpolators: {rand}, {node}")
+    chosen = [hgs.pick_from_phase(p) for p in np.linspace(-np.pi, np.pi, 721)]
+    require(all(isinstance(i, int) and 0 <= i < HEX_ENTRIES for i in chosen),
+            "pick_from_phase outside the set")
+    print(f"phase 7 pick_from_phase over 721 phases: {len(set(chosen))} "
+          f"distinct members picked, every pick in range")
+    print(f"phase 7 characterize: {time.perf_counter() - t7:.2f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -415,14 +769,7 @@ def main():
             lambda: taylor.taylor_factors_reference(F, Gm, td, n_terms),
             lambda: taylor.taylor_factors_cuda(F, Gm, coeffs, n_terms), 5)
         s, r = taylor._ps_split(n_terms)
-        products = 1 + (s - 1) + 3 * (r - 1) + 4
-        # coefficient x power terms of the chunks (4 flops an entry), and
-        # the Horner epilogue adds (2 flops an entry)
-        power_terms = sum(1 for p in range(3) for k in range(n_terms + 1)
-                          if k % s)
-        flops = (products * 8 * n ** 3
-                 + (4 * power_terms + 2 * 3 * (r - 1)) * n * n) * B
-        nbytes = 6 * 8 * n * n * B + coeffs.numel() * 4
+        flops, nbytes, products, power_terms = taylor_work(n, B, n_terms)
         b_ms, b_by = bound_ms(flops, nbytes)
         print(f"phase 3 time B={B} n={n} terms={n_terms}: kernels "
               f"{k_ms:.3f} ms ({products} GEMM launches + 1 chunk pass), "
@@ -516,6 +863,10 @@ def main():
         inv.launches = taylor.launches = taylor.chunk_launches = 0
         for route in inv.route_launches:
             inv.route_launches[route] = 0
+
+    def launch_counts():
+        return {"cinv": inv.launches, "taylor": taylor.launches,
+                "taylor_chunks": taylor.chunk_launches}
 
     path_launches, path_routes = {}, {}
     amps = {}
@@ -721,10 +1072,9 @@ def main():
     vg = fom_value_and_grad(gd, LAM, numG)
     _, n_s, n_t, _ = static_solve_config(
         gd, [t.wavelength for t in DEFAULT_FOM_TERMS], numG, torch.complex64)
-    s6, r6 = taylor._ps_split(n_t)
     n_fom = len(DEFAULT_FOM_TERMS)
     expect = {"cinv": n_fom * (5 + int(math.log2(n_s))),
-              "taylor": n_fom * (1 + (s6 - 1) + 3 * (r6 - 1) + 4),
+              "taylor": n_fom * taylor_work(2 * numG, 1, n_t)[2],
               "taylor_chunks": n_fom}
     reset_counts()
     f_gpu, g_gpu = vg(gd.xyrra_list)
@@ -787,8 +1137,7 @@ def main():
     k_ms2, p_ms2 = ab_ms(
         lambda: taylor.taylor_factors_reference(F, Gm, t_path, k),
         lambda: taylor.taylor_factors_cuda(F, Gm, coeffs1, k), 20)
-    s1, r1 = taylor._ps_split(k)
-    flops1 = (1 + (s1 - 1) + 3 * (r1 - 1) + 4) * 8 * n1 ** 3
+    flops1 = taylor_work(n1, 1, k)[2] * 8 * n1 ** 3
     b_ms2, b_by2 = bound_ms(flops1, 6 * 8 * n1 * n1)
     results["taylor"]["sizes"].append(dict(
         path="fom_value_and_grad", n=n1, B=1, terms=k, ms=k_ms2,
@@ -846,6 +1195,10 @@ def main():
     require(ok, "the vary_angle member fails validate")
     require(pair[1] >= pair[0], f"vary_angle member fom {pair}")
     print(f"phase 6 design loop: {time.perf_counter() - t6:.2f} s")
+
+    # ---- phase 7: the amplitude databases at numG = 100 -----------------
+    characterize_phase(dev, gd, results, path_launches, reset_counts,
+                       launch_counts)
 
     # launches: the sum over the counted runs of each path
     kernels = [dict(name=name,

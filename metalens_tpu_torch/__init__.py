@@ -1,8 +1,9 @@
 """metalens_tpu_torch -- the PyTorch/CUDA port of :mod:`metalens_tpu`.
 
-The unit-cell RCWA solve, the figure of merit and its shape gradient, and
-the design loop (the host optimizers and ``vary_angle``) run here in
-PyTorch, with
+The unit-cell RCWA solve, the figure of merit and its shape gradient, the
+design loop (the host optimizers and ``vary_angle``) and the amplitude
+databases (characterize, the interpolators, ``HexGridSet``, npz save and
+load) run here in PyTorch, with
 the two TPU kernels of the JAX package (``solver/pallas_taylor.py``,
 ``solver/pallas_inv.py``) replaced by hand-written CUDA kernels for Hopper
 (``csrc/``).  The package imports ``torch`` and never ``jax``; the JAX
@@ -20,3 +21,5 @@ from .solver.fom import FomTerm, DEFAULT_FOM_TERMS  # noqa: F401
 from .engine import fom_value_and_grad  # noqa: F401
 from .optimize import (optimize, optimize2, optimize_gradient,  # noqa: F401
                        vary_angle)
+from .hexgrid import HexGridSet  # noqa: F401
+from .serialization import save, load  # noqa: F401

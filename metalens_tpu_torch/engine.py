@@ -1,12 +1,17 @@
-"""Engine: the figure of merit of unit cells on the port's solver.
+"""Engine: the figure of merit and the amplitude databases of unit cells on
+the port's solver.
 
-Counterpart of the FOM part of ``metalens_tpu/engine.py``.  PyTorch runs
-eagerly, so there are no cached programs: :func:`_fom_eval` is one batched
-evaluation of the multi-wavelength FOM for a batch of cell geometries,
-sharing the wavelength-independent structure factor (and NV projector)
-across the terms.  Both polarizations come out of one solve per term.
+Counterpart of the FOM and characterize parts of
+``metalens_tpu/engine.py``.  PyTorch runs eagerly, so there are no cached
+programs: :func:`_fom_eval` is one batched evaluation of the
+multi-wavelength FOM for a batch of cell geometries, sharing the
+wavelength-independent structure factor (and NV projector) across the
+terms.  Both polarizations come out of one solve per term.
 :func:`fom_value_and_grad` differentiates it by autograd, through the
 kernels' own backward passes (``InverseFn``, ``TaylorFn``) on the card.
+
+:func:`characterize_grating` fills a cell's amplitude database in one
+batched solve over the joint (wavelength x direction) grid.
 
 Every entry point takes ``device=`` (default ``"cuda"``, where the
 hand-written kernels run; it raises when torch has no CUDA device, and
@@ -29,7 +34,7 @@ from .solver.epsilon import (ellipse_structure_toeplitz_traced,
 from .solver.fff import (normal_projector_toeplitz_traced,
                          nv_blocks_from_structure)
 from .solver.fom import DEFAULT_FOM_TERMS, FomTerm, term_score
-from .units import pi
+from .units import nm, pi
 
 
 def _diff_g_max(g, orders) -> float:
@@ -320,3 +325,140 @@ def fom_of_gratings(gratings, target_wavelength=None, numG: int = 100,
     return [fom_of_grating(g, target_wavelength=target_wavelength, numG=numG,
                            terms=terms, device=device, dtype=dtype)
             for g in gratings]
+
+
+# --------------------------------------------------------------------------
+# characterize
+# --------------------------------------------------------------------------
+
+def _direction_grid(ux_min, ux_max, uy_min, uy_max, u_steps):
+    """The (ux, uy) directions of a sweep, in float64 on the host: the
+    u_steps x u_steps grid (its centre when u_steps == 1), ux-major, inside
+    the unit circle."""
+    if u_steps == 1:
+        ux_list = np.array([(ux_min + ux_max) / 2.0])
+        uy_list = np.array([(uy_min + uy_max) / 2.0])
+    else:
+        ux_list = np.linspace(ux_min, ux_max, u_steps)
+        uy_list = np.linspace(uy_min, uy_max, u_steps)
+    UX, UY = np.meshgrid(ux_list, uy_list, indexing="ij")
+    ux_grid, uy_grid = UX.ravel(), UY.ravel()
+    inside = ux_grid ** 2 + uy_grid ** 2 < 1.0
+    return ux_grid[inside], uy_grid[inside]
+
+
+def characterize_grating(g, ux_min, ux_max, uy_min, uy_max, u_steps: int,
+                         wavelength, numG: int, just_normal: bool = False,
+                         convert_to_xy: bool = True,
+                         include_tir: bool = False,
+                         taylor_terms: int | None = None,
+                         max_scan_order: int = 5, fff: bool = True, *,
+                         device="cuda", dtype=None) -> list:
+    """Amplitude database of one grating: the list-of-dicts schema of the
+    JAX package (and the reference), one entry per (wavelength, direction,
+    kept order, incident polarization), computed as one batched solve over
+    the joint (wavelength x direction) grid, wavelength-major.  Both
+    incident polarizations ('x' and 'y', unit amplitude in the S4 x/y
+    basis) come out of one solve per cell.
+
+    The eps blocks and E's inverse depend on the geometry and the
+    wavelength, not on the direction: they are built once per wavelength
+    and repeated across the directions.  Orders kept: |k_in + G| below
+    k_vac (n_glass k_vac with ``include_tir``), with |ox|, |oy| <=
+    ``max_scan_order``.  ``wavelength`` is a number or a list; the slab
+    schedule is sized at the shortest."""
+    assert convert_to_xy, "raw s/p output retired; x/y is the native basis"
+    device = _device(device)
+    cdt = cpx.complex_dtype(device, dtype)
+    rdt = cpx.real_dtype(cdt)
+    wavelengths = ([float(wavelength)] if np.ndim(wavelength) == 0
+                   else list(wavelength))
+    orders, n_slabs, taylor, hermitian = static_solve_config(
+        g, wavelengths, numG, cdt)
+    N = orders.shape[0]
+    ux_grid, uy_grid = _direction_grid(ux_min, ux_max, uy_min, uy_max,
+                                       u_steps)
+    n_dir = len(ux_grid)
+
+    # the joint batch, wavelength-major, on the host in float64
+    eps_p_u, eps_g_u, ng_u = [], [], []
+    for lam in wavelengths:
+        ng, nt = resolve_indices(g.n_glass, g.n_tio2, lam)
+        eps_p_u.append(complex(nt) ** 2)
+        eps_g_u.append(complex(ng) ** 2)
+        ng_u.append(float(np.real(ng)))
+    lam_flat = np.repeat(np.asarray(wavelengths, dtype=np.float64), n_dir)
+    ux_flat = np.tile(ux_grid, len(wavelengths))
+    uy_flat = np.tile(uy_grid, len(wavelengths))
+    ng_flat = np.repeat(ng_u, n_dir)
+
+    xy = torch.as_tensor(np.asarray(g.xyrra_list), dtype=rdt,
+                         device=device)[None]
+    small_u = small_u_ok(g, orders)
+    per_lam = [rcwa.build_layer_eps(orders, g.grating_period,
+                                    g.lateral_period, xy, eps_p,
+                                    eps_small_u=small_u, fff=fff,
+                                    hermitian_eps=hermitian)
+               for eps_p in eps_p_u]
+    E_u = torch.cat([E for E, _ in per_lam])
+
+    def per_cell(blocks):
+        return blocks.repeat_interleave(n_dir, dim=0)
+
+    E = per_cell(E_u)
+    Einv = per_cell(rcwa.invert_eps(E_u, hermitian))
+    M_blocks = (tuple(per_cell(torch.cat(m))
+                      for m in zip(*(M for _, M in per_lam)))
+                if fff else None)
+    i0 = ordmod.order_index(orders, 0, 0)
+    c = torch.zeros((2 * N, 2), dtype=cdt, device=device)
+    c[i0, 0] = c[i0 + N, 1] = 1.0
+
+    def col(x, dt):
+        return torch.as_tensor(np.asarray(x), dtype=dt, device=device)
+
+    ampf, ampr, _, _ = rcwa.cell_amplitudes_with_eps(
+        orders, E, g.grating_period, g.lateral_period, g.cyl_height,
+        col(np.repeat(eps_g_u, n_dir), cdt), col(lam_flat, rdt),
+        col(ux_flat, rdt), col(uy_flat, rdt), c, n_slabs=n_slabs,
+        taylor_terms=taylor_terms or taylor, M_blocks=M_blocks,
+        hermitian_eps=hermitian, Einv=Einv)
+    # (B, 2N, 2 pol) -> host complex (B, pol, 2N); pol 0 = 'y', 1 = 'x'
+    ampf = ampf.transpose(1, 2).cpu().numpy()
+    ampr = ampr.transpose(1, 2).cpu().numpy()
+
+    mx = orders[:, 0].astype(float)
+    my = orders[:, 1].astype(float)
+    scan_ok = ((np.abs(orders[:, 0]) <= max_scan_order)
+               & (np.abs(orders[:, 1]) <= max_scan_order))
+    data = []
+    for b in range(len(ux_flat)):
+        lam = lam_flat[b]
+        wavelength_in_nm = round(lam / nm)
+        cutoff2 = (ng_flat[b] ** 2) if include_tir else 1.0
+        Kx = ux_flat[b] + mx * lam / g.grating_period
+        Ky = uy_flat[b] + my * lam / g.lateral_period
+        prop = (Kx ** 2 + Ky ** 2) < cutoff2
+        for i in np.nonzero(prop & scan_ok)[0]:
+            for p, pol_name in enumerate(("y", "x")):
+                data.append({
+                    "wavelength_in_nm": float(wavelength_in_nm),
+                    "x_or_y": pol_name,
+                    "ux": float(ux_flat[b]), "uy": float(uy_flat[b]),
+                    "ox": int(orders[i, 0]), "oy": int(orders[i, 1]),
+                    "ampfy": complex(ampf[b, p, i]),
+                    "ampfx": complex(ampf[b, p, i + N]),
+                    "ampry": complex(ampr[b, p, i]),
+                    "amprx": complex(ampr[b, p, i + N]),
+                })
+    if just_normal:
+        # mirror the (0.001, 0.001) sample into the other three quadrants
+        assert all(e["ux"] == 0.001 for e in data)
+        assert all(e["uy"] == 0.001 for e in data)
+        for entry in list(data):
+            for ux_sign, uy_sign in [(-1, 1), (-1, -1), (1, -1)]:
+                e2 = dict(entry)
+                e2["ux"] *= ux_sign
+                e2["uy"] *= uy_sign
+                data.append(e2)
+    return data

@@ -1,10 +1,12 @@
 """Scene objects ``Grating`` and ``GratingCollection`` on the port's engine.
 
 Counterpart of ``metalens_tpu/grating.py``: ``Grating`` (constructor,
-spec-roundtrip ``repr``, ``copy``, ``standardize``, ``get_angle_in_air`` and
-``fom``), the fabrication constraints with :func:`validate` and
-:func:`resize`, and ``GratingCollection`` (members, interpolation by
-period, ``repr``), with the FOM routed to :mod:`metalens_tpu_torch.engine`.
+spec-roundtrip ``repr``, ``copy``, ``standardize``, ``get_angle_in_air``,
+``fom``, ``characterize`` with the ``run_lua`` names, ``save``), the
+fabrication constraints with :func:`validate` and :func:`resize`, and
+``GratingCollection`` (members, interpolation by period, ``repr``,
+``characterize``, ``build_interpolators``, ``save``), with the solves
+routed to :mod:`metalens_tpu_torch.engine`.
 The ``repr`` formats are the JAX package's (and the reference's), so a spec
 written by either package evaluates in the other.  Everything here is
 numpy.
@@ -141,6 +143,80 @@ class Grating:
         return fom_of_grating(self, target_wavelength=target_wavelength,
                               numG=numG, terms=terms, device=device,
                               dtype=dtype)
+
+    def save(self, path):
+        """Binary persistence (see
+        :mod:`metalens_tpu_torch.serialization`)."""
+        from .serialization import save
+        return save(self, path)
+
+    def run_lua(self, target_wavelength=None, subfolder=None, numG=50,
+                terms=None, *, device="cuda", dtype=None, **kwargs):
+        """The reference's name for :meth:`fom`; with characterize keyword
+        arguments it runs :meth:`characterize` instead."""
+        if kwargs:
+            return self.characterize(numG=numG, device=device, dtype=dtype,
+                                     **kwargs)
+        return self.fom(target_wavelength=target_wavelength, numG=numG,
+                        terms=terms, device=device, dtype=dtype)
+
+    def run_lua_initiate(self, target_wavelength=None, subfolder=None,
+                         numG=50, terms=None, *, device="cuda", dtype=None,
+                         **kwargs):
+        """A deferred :meth:`run_lua` (the reference's initiate/getresult
+        pair): evaluate the returned handle with :meth:`run_lua_getresult`,
+        or pass it to ``characterize(process=...)``."""
+        return lambda: self.run_lua(target_wavelength=target_wavelength,
+                                    numG=numG, terms=terms, device=device,
+                                    dtype=dtype, **kwargs)
+
+    @staticmethod
+    def run_lua_getresult(process):
+        """Evaluate a handle from :meth:`run_lua_initiate`."""
+        return process()
+
+    def characterize(self, subfolder=None, process=None,
+                     ux_min=None, ux_max=None, uy_min=-0.2, uy_max=0.2,
+                     u_steps=3, wavelength=580 * nm, numG=100,
+                     convert_to_xy=True, just_normal=False, append=False, *,
+                     device="cuda", dtype=None):
+        """Fill ``self.data``, the amplitude database over a grid of
+        incoming directions, in one batched solve (see
+        :func:`metalens_tpu_torch.engine.characterize_grating`).
+        ``just_normal`` solves the (0.001, 0.001) direction and mirrors it
+        into the other quadrants.  ``append=True`` keeps the entries at
+        other wavelengths (an RGB database) and replaces those at the
+        wavelengths of this call.  ``process``: a handle from
+        :meth:`run_lua_initiate`, which runs with the initiate call's
+        arguments; this call's own sweep arguments are ignored.  Runs on
+        CUDA unless ``device="cpu"``."""
+        from .engine import characterize_grating
+        if process is not None:
+            assert not append, "append is not supported via a process handle"
+            return process()
+        if just_normal:
+            ux_min = ux_max = uy_min = uy_max = 0.001
+            u_steps = 1
+        else:
+            if ux_min is None:
+                ux_min = max(-0.99, self.get_angle_in_air(580 * nm) - 0.2)
+            if ux_max is None:
+                ux_max = min(0.99, self.get_angle_in_air(580 * nm) + 0.2)
+        assert convert_to_xy or not just_normal
+        new_data = characterize_grating(
+            self, ux_min=ux_min, ux_max=ux_max, uy_min=uy_min, uy_max=uy_max,
+            u_steps=u_steps, wavelength=wavelength, numG=numG,
+            just_normal=just_normal, convert_to_xy=convert_to_xy,
+            device=device, dtype=dtype)
+        if append and hasattr(self, "data"):
+            wls = ({round(float(wavelength) / nm)}
+                   if np.ndim(wavelength) == 0
+                   else {round(w / nm) for w in wavelength})
+            self.data = [e for e in self.data
+                         if round(e["wavelength_in_nm"]) not in wls] + new_data
+        else:
+            self.data = new_data
+        return self.data
 
 
 def validate(mygrating, print_details=False, similar_to=None, how_similar=None):
@@ -369,6 +445,48 @@ class GratingCollection:
 
     def get_outermost(self):
         return self.grating_list[0]
+
+    def characterize(self, wavelength, numG=100, u_steps=5,
+                     just_normal=False, append=False, *, device="cuda",
+                     dtype=None):
+        """Fill every member's amplitude database, one batched solve per
+        member, over the directions the family deflects (its angle range
+        +-0.25 in ux, uy in [-0.2, 0.2]).  ``wavelength`` is a number or a
+        list (one joint sweep); ``append=True`` adds wavelengths to an RGB
+        database.  Runs on CUDA unless ``device="cpu"``."""
+        if just_normal:
+            ux_min = ux_max = uy_min = uy_max = 0.001
+            u_steps = 1
+        else:
+            wl = self.target_wavelength
+            ux_min = max(-0.99, self.get_innermost().get_angle_in_air(wl)
+                         - 0.25)
+            ux_max = min(0.99, self.get_outermost().get_angle_in_air(wl)
+                         + 0.25)
+            uy_min, uy_max = -0.2, 0.2
+        for g in self.grating_list:
+            g.characterize(ux_min=ux_min, ux_max=ux_max, uy_min=uy_min,
+                           uy_max=uy_max, u_steps=u_steps,
+                           wavelength=wavelength, numG=numG,
+                           just_normal=just_normal, append=append,
+                           device=device, dtype=dtype)
+
+    def build_interpolators(self, *, device="cuda"):
+        """The (ux, uy, grating_period) -> complex amplitude tables of the
+        members' databases, ``self.interpolators[(wl_nm, (ox, oy),
+        'x'|'y', 'ampfy'|'ampfx')]``, with the period axis padded by 1% at
+        both ends (see :mod:`metalens_tpu_torch.characterize`).  The tables
+        live on ``device`` (CUDA unless ``device="cpu"``)."""
+        from .characterize import build_collection_interpolators
+        self.interpolators, self.interpolator_bounds = \
+            build_collection_interpolators(self, device=device)
+        return self.interpolators
+
+    def save(self, path):
+        """Binary persistence (see
+        :mod:`metalens_tpu_torch.serialization`)."""
+        from .serialization import save
+        return save(self, path)
 
     def __repr__(self):
         return ("GratingCollection("

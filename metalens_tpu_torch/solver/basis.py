@@ -10,8 +10,9 @@ convention e^{-i w t}, forward propagation e^{+i k z}):
     E_ypol = [  Kx*Ky/(n^2 Kz),     -(Kx^2+Kz^2)/(n^2 Kz) ]
 
 Kx, Ky are real (..., N) tensors; every per-order block is a complex
-(..., N) tensor.  A medium's ``eps`` is a python number, its index ``n`` a
-python number or a 0-d complex tensor.
+(..., N) tensor.  A medium's ``eps`` is a python number or a complex
+tensor (one medium per cell), its index ``n`` a python number or a complex
+tensor.
 """
 
 from __future__ import annotations
@@ -23,9 +24,11 @@ from .cpx import csqrt_posim
 
 def kz_norm(Kx, Ky, eps, branch_eps: float = 1e-9) -> torch.Tensor:
     """Normalized kz = sqrt(eps - Kx^2 - Ky^2) on the Im >= 0 branch, for a
-    medium eps (python number); ``branch_eps`` nudges the cut so lossless
-    evanescent orders land exactly on +i sqrt|.|."""
-    e = complex(eps)
+    medium eps (a python number, or a complex tensor that broadcasts
+    against Kx, e.g. one medium per cell as a (B, 1) column);
+    ``branch_eps`` nudges the cut so lossless evanescent orders land
+    exactly on +i sqrt|.|."""
+    e = eps if torch.is_tensor(eps) else complex(eps)
     arg_re = e.real - Kx * Kx - Ky * Ky
     arg_im = e.imag + torch.zeros_like(Kx) + branch_eps
     return csqrt_posim(torch.complex(arg_re, arg_im))

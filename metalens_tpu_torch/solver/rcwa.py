@@ -96,13 +96,15 @@ def build_FG(E, Einv, Kx, Ky, M_blocks=None):
 
 def thin_slab_T_blocks(F, G, t, taylor_terms: int):
     """Blocks of expm(i t [[0,F],[G,0]]) via the Taylor series in
-    Y = t^2 F G (the factors come from :func:`taylor.taylor_factors`):
+    Y = t^2 F G (the factors come from :func:`taylor.taylor_factors`); t is
+    a number or a (B,) tensor (one slab thickness per cell):
 
         T11 = CS,  T12 = i t SF,  T21 = i t GS,  T22 = I + t^2 GRF.
     """
     CS, SF, GS, GRF = taylor.taylor_factors(F, G, t, taylor_terms)
     I = cpx.eye(F.shape[-1], F)
-    return CS, SF * 1j * t, GS * 1j * t, I + GRF * (t * t)
+    tt = taylor._batch_scalar(t, F)
+    return CS, SF * 1j * tt, GS * 1j * tt, I + GRF * (tt * tt)
 
 
 def _transfer_to_smatrix_symmetric(M21, M22) -> SMatrix:
@@ -274,25 +276,33 @@ EPS_REF = 1.5 + 1.0j
 
 
 def _medium_blocks(Kx, Ky, eps, branch_eps):
-    """(we, we_inv) of the uniform medium eps (python number)."""
-    Kz = basis.kz_norm(Kx, Ky, eps, branch_eps)
-    n = 1.0 if eps == 1.0 else cpx.csqrt_posim(cpx.scalar(eps, Kz))
+    """(we, we_inv) of the uniform medium eps: a python number, or a (B,)
+    complex tensor (one medium per cell)."""
+    if torch.is_tensor(eps) and eps.ndim > 0:
+        eps = eps.to(device=Kx.device,
+                     dtype=cpx.to_complex(Kx.dtype)).reshape(-1, 1)
+        Kz = basis.kz_norm(Kx, Ky, eps, branch_eps)
+        n = cpx.csqrt_posim(eps)
+    else:
+        Kz = basis.kz_norm(Kx, Ky, eps, branch_eps)
+        n = 1.0 if eps == 1.0 else cpx.csqrt_posim(cpx.scalar(eps, Kz))
     return basis.we_blocks(Kx, Ky, Kz, n), basis.we_inv_blocks(Kx, Ky, Kz, n)
 
 
 def layer_smatrix(E, Kx, Ky, k0h, n_slabs: int, taylor_terms: int,
                   branch_eps: float = 1e-9,
-                  M_blocks=None, hermitian_eps: bool = True) -> SMatrix:
-    """S-matrix of the patterned layer of normalized thickness ``k0h`` in
-    the ``EPS_REF`` plane-wave basis on both faces.  ``hermitian_eps=False``
-    (absorbing pillars) inverts E by the pivoted solve."""
+                  M_blocks=None, hermitian_eps: bool = True,
+                  Einv=None) -> SMatrix:
+    """S-matrix of the patterned layer of normalized thickness ``k0h`` (a
+    number or a (B,) tensor) in the ``EPS_REF`` plane-wave basis on both
+    faces.  ``hermitian_eps=False`` (absorbing pillars) inverts E by the
+    pivoted solve.  A caller that sweeps many incidence directions over
+    one geometry passes the direction-independent ``Einv``."""
     if n_slabs & (n_slabs - 1) or n_slabs < 1:
         raise ValueError(f"n_slabs must be a power of two (doubling "
                          f"assembly), got {n_slabs}")
-    if hermitian_eps:
-        Einv = cpx.inverse(E)
-    else:
-        Einv = cpx.solve_embed(E, cpx.eye(E.shape[-1], E).expand_as(E))
+    if Einv is None:
+        Einv = invert_eps(E, hermitian_eps)
     F, G = build_FG(E, Einv, Kx, Ky, M_blocks)
     t = k0h / n_slabs
     T = thin_slab_T_blocks(F.contiguous(), G.contiguous(), t, taylor_terms)
@@ -301,6 +311,15 @@ def layer_smatrix(E, Kx, Ky, k0h, n_slabs: int, taylor_terms: int,
     for _ in range(int(math.log2(n_slabs))):
         S = redheffer_star_self_symmetric(S)
     return S
+
+
+def invert_eps(E, hermitian_eps: bool = True):
+    """E^-1 of a batch of eps Toeplitz matrices: the unpivoted inverse (the
+    CUDA kernel on the card) for lossless eps, which is Hermitian positive
+    definite, and the pivoted solve for absorbing eps."""
+    if hermitian_eps:
+        return cpx.inverse(E)
+    return cpx.solve_embed(E, cpx.eye(E.shape[-1], E).expand_as(E))
 
 
 def build_layer_eps(orders, grating_period, lateral_period, xyrra,
@@ -326,21 +345,32 @@ def _batch_col(x, B: int, like: torch.Tensor):
     return x.reshape(-1, 1).expand(B, 1)
 
 
+def _per_cell(x):
+    """True for a (B,) tensor (one value per cell), False for a number."""
+    return torch.is_tensor(x) and x.ndim > 0
+
+
 def _cell_parts(orders, E, grating_period, lateral_period, cyl_height,
                 eps_glass, wavelength, ux, uy, n_slabs: int,
                 taylor_terms: int, branch_eps: float, M_blocks,
-                hermitian_eps: bool):
+                hermitian_eps: bool, Einv=None):
     """The doubled layer S-matrix in the lossy reference basis plus the two
-    conversion interfaces (air | ref on top, ref | glass below)."""
+    conversion interfaces (air | ref on top, ref | glass below).
+    ``wavelength`` and ``eps_glass`` are numbers or (B,) tensors, one per
+    cell (a wavelength-major characterize batch)."""
     B = E.shape[0]
     rdt = cpx.real_dtype(E.dtype)
     o = torch.as_tensor(orders).to(device=E.device, dtype=rdt)
-    Kx = _batch_col(ux, B, o) + o[None, :, 0] * (wavelength / grating_period)
-    Ky = _batch_col(uy, B, o) + o[None, :, 1] * (wavelength / lateral_period)
-    k0h = TWO_PI * cyl_height / wavelength
+    lam = _batch_col(wavelength, B, o) if _per_cell(wavelength) \
+        else wavelength
+    Kx = _batch_col(ux, B, o) + o[None, :, 0] * (lam / grating_period)
+    Ky = _batch_col(uy, B, o) + o[None, :, 1] * (lam / lateral_period)
+    k0h = TWO_PI * cyl_height / lam
+    if _per_cell(wavelength):
+        k0h = k0h.reshape(B)
     S_layer = layer_smatrix(E, Kx, Ky, k0h, n_slabs, taylor_terms,
                             branch_eps=branch_eps, M_blocks=M_blocks,
-                            hermitian_eps=hermitian_eps)
+                            hermitian_eps=hermitian_eps, Einv=Einv)
     we_a, wei_a = _medium_blocks(Kx, Ky, 1.0, branch_eps)
     we_g, wei_g = _medium_blocks(Kx, Ky, eps_glass, branch_eps)
     we_r, wei_r = _medium_blocks(Kx, Ky, EPS_REF, branch_eps)
@@ -401,7 +431,7 @@ def cell_amplitudes_with_eps(orders, E, grating_period, lateral_period,
                              c_inc, n_slabs: int, taylor_terms: int = 12,
                              branch_eps: float = 1e-9, M_blocks=None,
                              hermitian_eps: bool = True,
-                             want_reflection: bool = True):
+                             want_reflection: bool = True, Einv=None):
     """Scattered amplitudes (s11 @ c_inc, s21 @ c_inc) without forming the
     composite S-matrix: the outer conversion star is applied straight to
     the incident amplitudes c_inc ((2N, K) or (B, 2N, K)):
@@ -409,12 +439,15 @@ def cell_amplitudes_with_eps(orders, E, grating_period, lateral_period,
         ampf = inner.s11 @ (X0 @ (A.s11 . c)),
         ampr = A.s21 . c + A.s22 . (inner.s21 @ (X0 @ (A.s11 . c))).
 
+    ``wavelength``, ``eps_glass``, ``ux`` and ``uy`` are numbers or (B,)
+    tensors.  ``Einv``: E's inverse, when the caller has it (it depends on
+    the geometry and the wavelength, not on the direction).
     ``want_reflection=False`` (the FOM path) skips ampr.  Returns
     (ampf, ampr or None, Kx, Ky)."""
     S_layer, A, S_ref_glass, Kx, Ky = _cell_parts(
         orders, E, grating_period, lateral_period, cyl_height, eps_glass,
         wavelength, ux, uy, n_slabs, taylor_terms, branch_eps, M_blocks,
-        hermitian_eps)
+        hermitian_eps, Einv=Einv)
     inner = star_dense_blockdiag(S_layer, S_ref_glass,
                                  outputs=("s11", "s21"))
     n2 = inner.s11.shape[-1]

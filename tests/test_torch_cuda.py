@@ -211,3 +211,41 @@ def test_taylor_backward_against_reference_autograd(cuda_device):
         taylor.taylor_factors_cuda(leaves_k[0], G,
                                    taylor.coeff_table(t, terms, 4,
                                                       cuda_device), terms)
+
+
+@pytest.mark.cuda
+def test_characterize_three_wavelengths_against_plain_versions(cuda_device):
+    """One characterize sweep with three wavelengths in its batch (so the
+    slab thickness t varies across the Taylor batch) through the kernels,
+    against the same sweep with the plain versions in their place."""
+    from metalens_tpu_torch.engine import characterize_grating
+    from metalens_tpu_torch.grating import Grating
+    g = Grating(lateral_period=320 * NM, grating_period=1250 * NM,
+                cyl_height=550 * NM,
+                xyrra_list_in_nm_deg=[[125., 0., 100., 90., 0.],
+                                      [-312.5, 5., 110., 80., 10.]])
+    kw = dict(ux_min=0.2, ux_max=0.5, uy_min=-0.2, uy_max=0.2, u_steps=3,
+              wavelength=[450 * NM, 580 * NM, 650 * NM], numG=25)
+    before = inv.launches, taylor.launches, taylor.chunk_launches
+    got = characterize_grating(g, **kw)
+    after = inv.launches, taylor.launches, taylor.chunk_launches
+    assert all(a > b for a, b in zip(after, before))
+    saved = inv.inv, taylor.taylor_factors
+    inv.inv, taylor.taylor_factors = (inv.inv_reference,
+                                      taylor.taylor_factors_reference)
+    try:
+        want = characterize_grating(g, **kw)
+    finally:
+        inv.inv, taylor.taylor_factors = saved
+    assert (inv.launches, taylor.launches, taylor.chunk_launches) == after
+    assert len(got) == len(want) > 0
+    assert {e["wavelength_in_nm"] for e in got} == {450.0, 580.0, 650.0}
+    worst = 0.0
+    for a, b in zip(got, want):
+        assert [a[k] for k in ("wavelength_in_nm", "x_or_y", "ux", "uy",
+                               "ox", "oy")] \
+            == [b[k] for k in ("wavelength_in_nm", "x_or_y", "ux", "uy",
+                               "ox", "oy")]
+        worst = max(worst, max(abs(a[k] - b[k]) for k in
+                               ("ampfy", "ampfx", "ampry", "amprx")))
+    assert worst < 2e-3

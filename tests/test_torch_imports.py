@@ -9,7 +9,8 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import metalens_tpu_torch, metalens_tpu_torch.engine, "
         "metalens_tpu_torch.convert, metalens_tpu_torch.grating, "
-        "metalens_tpu_torch.optimize\n"
+        "metalens_tpu_torch.optimize, metalens_tpu_torch.characterize, "
+        "metalens_tpu_torch.hexgrid, metalens_tpu_torch.serialization\n"
         "from metalens_tpu_torch.solver import basis, cpx, epsilon, fff, "
         "fom, inv, orders, rcwa, special, taylor\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "

@@ -232,7 +232,8 @@ def test_constraint_penalty_matches_jax(similar):
     sim = _jax_grating(XY_NM_DEG).xyrra_list if similar else None
     args = (1200 * nm, 320 * nm, 50 * nm, 100 * nm, sim,
             0.03 if similar else None)
-    want_v, want_g = jax.value_and_grad(jopt.constraint_penalty)(xy, *args)
+    want_v, want_g = jax.jit(jax.value_and_grad(jopt.constraint_penalty),
+                             static_argnums=(1, 2, 3, 4, 6))(xy, *args)
     x = torch.tensor(xy, requires_grad=True)
     got_v = constraint_penalty(x, *args)
     got_g, = torch.autograd.grad(got_v, x)
