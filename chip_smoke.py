@@ -23,6 +23,13 @@ joint 450/650 nm sweep, and a 20-entry ``HexGridSet``; it holds entries to
 the CPU in complex128, the kernels to their plain versions on the
 characterize path's own inputs, and the interpolators on the card to tables
 built on the CPU, and it counts, times and profiles the member sweeps.
+Phase 8 drives the lens check: ``benchmarks/run_configs.py`` config 5 on
+the card and on the CPU in complex128, held to the JAX package's committed
+values, then ``benchmarks/northstar2.py``'s 0.5 mm collimator at 580 nm
+(databases at numG = 100, ``make_design``, the stitch at 1944 x 1944
+points, the far field, the focal metrics), with near-field slabs and the
+far field held to CPU complex128, the kernels held to their plain versions
+on the lens's characterize inputs, and the stages timed and profiled.
 
     python3 chip_smoke.py
 
@@ -67,6 +74,19 @@ CHAR_NUMG = 100       # characterize's own default (metalens_tpu/grating.py)
 HEX_ENTRIES = 20      # benchmarks/run_configs.py config 1 at full scale
 TOL_INTERP = 1e-5     # interpolators on the card vs complex128, of table max
 AMPS = ("ampfy", "ampfx", "ampry", "amprx")
+# The lens check's anchor: benchmarks/run_configs.py config 5 at --scale
+# small, through the JAX package on the CPU in float32 (JAX_PLATFORMS=cpu,
+# jax_enable_x64 off), printed by
+#     python benchmarks/run_configs.py --config 5
+CONFIG5_JAX = {"transmission": 0.9157, "spot_fraction_of_total": 0.6281}
+TOL_CONFIG5 = 1e-3
+TOL_NEARFIELD = 2e-3  # stitch on the card vs CPU complex128, of field max
+TOL_FARFIELD = 1e-4   # far field on the card vs CPU complex128
+# benchmarks/northstar2.py's production lens at 580 nm: a 0.5 mm aperture,
+# the source 150 um away, four angle brackets in degrees
+NS_RADIUS, NS_SOURCE = 250e-6, 150e-6
+NS_BRACKETS = ((20.0, 27.0), (27.0, 37.0), (37.0, 48.0), (48.0, 59.5))
+NS_HEX_ENTRIES = 16
 PEAK_F32 = 67e12          # flop/s, f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
@@ -187,9 +207,10 @@ def plain_versions(inverse=True, taylor_factors=True):
         inv.inv, taylor.taylor_factors = saved
 
 
-def profile(fn, label, rows=10):
+def profile(fn, label, rows=10, wall_ms=None):
     """One call of fn under torch.profiler: total self device time and the
-    kernels that take most of it."""
+    kernels that take most of it; with ``wall_ms`` (the call's time without
+    the profiler), the device's idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
@@ -210,8 +231,11 @@ def profile(fn, label, rows=10):
               if e.device_type == torch.autograd.DeviceType.CUDA
               and dev_us(e) > 0]
     total = sum(dev_us(e) for e in events) / 1e3
+    idle = ("" if wall_ms is None else
+            f"; against {wall_ms:.3f} ms of wall per call the device idles "
+            f"{100 * (1 - total / wall_ms):.1f}%")
     print(f"profile {label}: self device time {total:.3f} ms, "
-          f"wall {wall:.3f} ms under the profiler")
+          f"wall {wall:.3f} ms under the profiler{idle}")
     for e in sorted(events, key=dev_us, reverse=True)[:rows]:
         print(f"profile {label}:   {dev_us(e) / 1e3:9.3f} ms "
               f"{e.count:5d} calls  {e.key[:80]}")
@@ -317,6 +341,33 @@ def taylor_work(n, B, n_terms):
     return flops, nbytes, products, power_terms
 
 
+def sweep_launches(glist, lams):
+    """Kernel launches of one characterize sweep per member of ``glist``:
+    per wavelength <<1/eps>>^-1, one batch of E^-1 at N; at 2N the slab,
+    each doubling, the inner and the outer star; one Taylor call."""
+    import torch
+    from metalens_tpu_torch.engine import static_solve_config
+    out = {"cinv": 0, "taylor": 0, "taylor_chunks": 0}
+    for g in glist:
+        _, ns, nt, _ = static_solve_config(g, lams, CHAR_NUMG,
+                                           torch.complex64)
+        out["cinv"] += len(lams) + 1 + 3 + int(math.log2(ns))
+        out["taylor"] += taylor_work(2 * CHAR_NUMG, 1, nt)[2]
+        out["taylor_chunks"] += 1
+    return out
+
+
+def collection_sweep(gc, u_steps, numG):
+    """The direction sweep of GratingCollection.characterize: the family's
+    angle range +-0.25 in ux, uy in [-0.2, 0.2]."""
+    wl = gc.target_wavelength
+    return dict(ux_min=max(-0.99, gc.get_innermost().get_angle_in_air(wl)
+                           - 0.25),
+                ux_max=min(0.99, gc.get_outermost().get_angle_in_air(wl)
+                           + 0.25),
+                uy_min=-0.2, uy_max=0.2, u_steps=u_steps, numG=numG)
+
+
 def interp_errors(tables, tables_cpu, pts, by_key):
     """Worst error of the card's interpolators (complex64) at ``pts``
     against the same tables built on the CPU in complex128, and at the
@@ -340,6 +391,75 @@ def interp_errors(tables, tables_cpu, pts, by_key):
     return rand, node
 
 
+def kernels_at_inputs(dev, results, inv_caps, tay_caps, path, label):
+    """Hold the kernels to their plain versions on captured inputs of a
+    path (inverse batches; Taylor calls as (F, G, t, terms)), then time
+    each size in turns against the plain version beside its bound and add
+    it to ``results``' sizes.  Returns the worst per-matrix inverse error,
+    the worst max-normalized Taylor error and the distinct values of t in
+    each Taylor batch."""
+    import torch
+    from metalens_tpu_torch.solver import inv, taylor
+    worst = 0.0
+    for A in inv_caps:
+        W, R = inv.inv_cuda(A), inv.inv_reference(A)
+        worst = max(worst, rel_err(W, R)[0])
+        results["cinv"]["max_abs_err"] = max(results["cinv"]["max_abs_err"],
+                                             (W - R).abs().max().item())
+    tay_worst = 0.0
+    t_values = []
+    for F, Gm, t, k in tay_caps:
+        t_values.append(len(set(torch.as_tensor(t).flatten().tolist())))
+        for a, b in zip(taylor.taylor_factors(F, Gm, t, k),
+                        taylor.taylor_factors_reference(F, Gm, t, k)):
+            tay_worst = max(tay_worst, ((a - b).abs().max()
+                                        / b.abs().max()).item())
+            results["taylor"]["max_abs_err"] = max(
+                results["taylor"]["max_abs_err"], (a - b).abs().max().item())
+    print(f"{label} kernels at the {path} inputs: {len(inv_caps)} "
+          f"inverse batches (n, B: "
+          f"{sorted({(A.shape[-1], A.shape[0]) for A in inv_caps})}) worst "
+          f"rel err vs plain {worst:.3e} (bound {TOL_INV}); Taylor batches "
+          f"B={[c[0].shape[0] for c in tay_caps]} with {t_values} distinct t,"
+          f" max-normalized err {tay_worst:.3e} (bound {TOL_TAYLOR})")
+    require(worst <= TOL_INV and tay_worst <= TOL_TAYLOR,
+            f"kernels at the {path} inputs: {worst}, {tay_worst}")
+    # times in turns against the plain versions, beside the bound, at every
+    # size of the path
+    timed = set()
+    for A in inv_caps:
+        n, B = A.shape[-1], A.shape[0]
+        if (n, B) in timed:
+            continue
+        timed.add((n, B))
+        k_ms, p_ms = ab_ms(lambda: inv.inv_reference(A),
+                           lambda: inv.inv_cuda(A), 20)
+        b_ms, b_by = bound_ms(8 * n ** 3 * B, 2 * 8 * n * n * B)
+        results["cinv"]["sizes"].append(dict(
+            path=path, numG=CHAR_NUMG, n=n, B=B, ms=k_ms, plain_ms=p_ms,
+            library_ms=p_ms, bound_ms=b_ms, bound_by=b_by))
+        print(f"{label} time inverse n={n} B={B}: kernel {k_ms:.4f} ms, "
+              f"torch.linalg.inv {p_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by})")
+    for F, Gm, t, k in tay_caps:
+        n, B = F.shape[-1], F.shape[0]
+        coeffs = taylor.coeff_table(t, k, B, dev)
+        td = torch.as_tensor(t).to(dev) if torch.is_tensor(t) else t
+        k_ms, p_ms = ab_ms(
+            lambda: taylor.taylor_factors_reference(F, Gm, td, k),
+            lambda: taylor.taylor_factors_cuda(F, Gm, coeffs, k), 10)
+        flops, nbytes, products, _ = taylor_work(n, B, k)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        results["taylor"]["sizes"].append(dict(
+            path=path, n=n, B=B, terms=k,
+            distinct_t=len(set(torch.as_tensor(t).flatten().tolist())),
+            ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+            bound_by=b_by))
+        print(f"{label} time Taylor n={n} B={B} terms={k}: kernels "
+              f"{k_ms:.4f} ms ({products} GEMM launches + 1 chunk pass), "
+              f"plain {p_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by})")
+    return worst, tay_worst, t_values
+
+
 def characterize_phase(dev, gd, results, path_launches, reset_counts,
                        launch_counts):
     """Phase 7: the amplitude databases on the card at numG = 100."""
@@ -349,8 +469,7 @@ def characterize_phase(dev, gd, results, path_launches, reset_counts,
     from metalens_tpu_torch.characterize import (
         build_collection_interpolators, build_hexgrid_interpolators)
     from metalens_tpu_torch.engine import (_direction_grid,
-                                           characterize_grating,
-                                           static_solve_config)
+                                           characterize_grating)
     from metalens_tpu_torch.grating import Grating
     from metalens_tpu_torch.solver import inv, taylor
     t7 = time.perf_counter()
@@ -364,28 +483,10 @@ def characterize_phase(dev, gd, results, path_launches, reset_counts,
     periods = [g.grating_period for g in gc.grating_list]
     require(len(set(periods)) == 4 and all(validate(g) for g in members),
             f"collection members: periods {periods}")
-    # the sweep of GratingCollection.characterize
-    sweep = dict(ux_min=max(-0.99, gc.get_innermost().get_angle_in_air(LAM)
-                            - 0.25),
-                 ux_max=min(0.99, gc.get_outermost().get_angle_in_air(LAM)
-                            + 0.25),
-                 uy_min=-0.2, uy_max=0.2, u_steps=5, numG=CHAR_NUMG)
+    sweep = collection_sweep(gc, 5, CHAR_NUMG)
     ux_grid, uy_grid = _direction_grid(sweep["ux_min"], sweep["ux_max"],
                                        -0.2, 0.2, 5)
     n_dir = len(ux_grid)
-
-    def expected(glist, lams):
-        """Launches of one sweep per member: per wavelength <<1/eps>>^-1,
-        one batch of E^-1 at N; at 2N the slab, each doubling, the inner
-        and the outer star; one Taylor call."""
-        out = {"cinv": 0, "taylor": 0, "taylor_chunks": 0}
-        for g in glist:
-            _, ns, nt, _ = static_solve_config(g, lams, CHAR_NUMG,
-                                               torch.complex64)
-            out["cinv"] += len(lams) + 1 + 3 + int(math.log2(ns))
-            out["taylor"] += taylor_work(2 * CHAR_NUMG, 1, nt)[2]
-            out["taylor_chunks"] += 1
-        return out
 
     sweeps = {}
     for label, run, glist, lams, cells in (
@@ -400,7 +501,7 @@ def characterize_phase(dev, gd, results, path_launches, reset_counts,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         c = launch_counts()
-        want = expected(glist, lams)
+        want = sweep_launches(glist, lams)
         path_launches[label] = c
         results["cinv"]["route_launches_by_path"][label] = dict(
             inv.route_launches)
@@ -441,7 +542,7 @@ def characterize_phase(dev, gd, results, path_launches, reset_counts,
     torch.cuda.synchronize()
     hex_s = time.perf_counter() - t0
     c = launch_counts()
-    want = expected(hgs.grating_list, [LAM])
+    want = sweep_launches(hgs.grating_list, [LAM])
     path_launches["characterize hexgrid"] = c
     results["cinv"]["route_launches_by_path"]["characterize hexgrid"] = dict(
         inv.route_launches)
@@ -482,17 +583,29 @@ def characterize_phase(dev, gd, results, path_launches, reset_counts,
             err_rgb = max(err_rgb, db_err(m0.data, characterize_grating(
                 m0, ux_grid[b], ux_grid[b], uy_grid[b], uy_grid[b], 1, rgb,
                 CHAR_NUMG, device="cpu")))
+        ends = (hgs.grating_list[0], hgs.grating_list[-1])
         err_hex = max(db_err(g.data, characterize_grating(
-            g, **hex_one, device="cpu"))
-            for g in (hgs.grating_list[0], hgs.grating_list[-1]))
+            g, **hex_one, device="cpu")) for g in ends)
+        # the same two entries with the second pillar 1.5 nm off its
+        # hexagonal site, so that no raster point of the NV normal field
+        # lies on the bisector between the pillars
+        err_off = 0.0
+        for g in ends:
+            g = g.copy()
+            g.xyrra_list[1, :2] += [1.3 * NM, -0.7 * NM]
+            err_off = max(err_off, db_err(
+                characterize_grating(g, **hex_one),
+                characterize_grating(g, **hex_one, device="cpu")))
     print(f"phase 7 vs CPU complex128 ({time.perf_counter() - t0:.1f} s, one "
           f"thread): member {m0.grating_period / NM:.1f} nm all {n_dir} "
           f"directions at 580 nm max err {err_dir:.3e}; {len(picks)} "
           f"directions x 2 wavelengths of the joint sweep {err_rgb:.3e}; "
-          f"HexGridSet entries 1 and {HEX_ENTRIES} {err_hex:.3e} (bound "
+          f"HexGridSet entries 1 and {HEX_ENTRIES} {err_hex:.3e}, the same "
+          f"with the second pillar 1.5 nm off its site {err_off:.3e} (bound "
           f"{TOL_GUARD})")
-    require(max(err_dir, err_rgb, err_hex) <= TOL_GUARD,
-            f"characterize vs CPU: {err_dir}, {err_rgb}, {err_hex}")
+    require(max(err_dir, err_rgb, err_hex, err_off) <= TOL_GUARD,
+            f"characterize vs CPU: {err_dir}, {err_rgb}, {err_hex}, "
+            f"{err_off}")
 
     # 7.4: the kernels at the characterize path's own inputs: the joint
     # sweep of one member (t takes two values along the Taylor batch), a
@@ -507,64 +620,9 @@ def characterize_phase(dev, gd, results, path_launches, reset_counts,
                               lambda: characterize_grating(m0, *three),
                               lambda: characterize_grating(h0, **hex_one))
                 for c in capture(taylor, "taylor_factors", run)]
-    worst = 0.0
-    for A in inv_caps:
-        W, R = inv.inv_cuda(A), inv.inv_reference(A)
-        worst = max(worst, rel_err(W, R)[0])
-        results["cinv"]["max_abs_err"] = max(results["cinv"]["max_abs_err"],
-                                             (W - R).abs().max().item())
-    tay_worst = 0.0
-    t_values = []
-    for F, Gm, t, k in tay_caps:
-        t_values.append(len(set(torch.as_tensor(t).flatten().tolist())))
-        for a, b in zip(taylor.taylor_factors(F, Gm, t, k),
-                        taylor.taylor_factors_reference(F, Gm, t, k)):
-            tay_worst = max(tay_worst, ((a - b).abs().max()
-                                        / b.abs().max()).item())
-            results["taylor"]["max_abs_err"] = max(
-                results["taylor"]["max_abs_err"], (a - b).abs().max().item())
-    print(f"phase 7 kernels at the characterize inputs: {len(inv_caps)} "
-          f"inverse batches (n, B: "
-          f"{sorted({(A.shape[-1], A.shape[0]) for A in inv_caps})}) worst "
-          f"rel err vs plain {worst:.3e} (bound {TOL_INV}); Taylor batches "
-          f"B={[c[0].shape[0] for c in tay_caps]} with {t_values} distinct t,"
-          f" max-normalized err {tay_worst:.3e} (bound {TOL_TAYLOR})")
+    _, _, t_values = kernels_at_inputs(
+        dev, results, inv_caps, tay_caps, "characterize", "phase 7")
     require(t_values == [2, 3, 1], f"distinct t per Taylor batch {t_values}")
-    require(worst <= TOL_INV and tay_worst <= TOL_TAYLOR,
-            f"kernels at the characterize inputs: {worst}, {tay_worst}")
-    # times in turns against the plain versions, beside the bound, at every
-    # size of the path
-    timed = set()
-    for A in inv_caps:
-        n, B = A.shape[-1], A.shape[0]
-        if (n, B) in timed:
-            continue
-        timed.add((n, B))
-        k_ms, p_ms = ab_ms(lambda: inv.inv_reference(A),
-                           lambda: inv.inv_cuda(A), 20)
-        b_ms, b_by = bound_ms(8 * n ** 3 * B, 2 * 8 * n * n * B)
-        results["cinv"]["sizes"].append(dict(
-            path="characterize", numG=CHAR_NUMG, n=n, B=B, ms=k_ms,
-            plain_ms=p_ms, library_ms=p_ms, bound_ms=b_ms, bound_by=b_by))
-        print(f"phase 7 time inverse n={n} B={B}: kernel {k_ms:.4f} ms, "
-              f"torch.linalg.inv {p_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by})")
-    for F, Gm, t, k in tay_caps:
-        n, B = F.shape[-1], F.shape[0]
-        coeffs = taylor.coeff_table(t, k, B, dev)
-        td = torch.as_tensor(t).to(dev) if torch.is_tensor(t) else t
-        k_ms, p_ms = ab_ms(
-            lambda: taylor.taylor_factors_reference(F, Gm, td, k),
-            lambda: taylor.taylor_factors_cuda(F, Gm, coeffs, k), 10)
-        flops, nbytes, products, _ = taylor_work(n, B, k)
-        b_ms, b_by = bound_ms(flops, nbytes)
-        results["taylor"]["sizes"].append(dict(
-            path="characterize", n=n, B=B, terms=k,
-            distinct_t=len(set(torch.as_tensor(t).flatten().tolist())),
-            ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
-            bound_by=b_by))
-        print(f"phase 7 time Taylor n={n} B={B} terms={k}: kernels "
-              f"{k_ms:.4f} ms ({products} GEMM launches + 1 chunk pass), "
-              f"plain {p_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by})")
     del inv_caps, tay_caps
 
     # 7.5: the interpolators on the card against the CPU's complex128
@@ -608,6 +666,282 @@ def characterize_phase(dev, gd, results, path_launches, reset_counts,
     print(f"phase 7 pick_from_phase over 721 phases: {len(set(chosen))} "
           f"distinct members picked, every pick in range")
     print(f"phase 7 characterize: {time.perf_counter() - t7:.2f} s")
+
+
+def round_collection(lo_deg, hi_deg, n_members=3):
+    """``tests/test_full_lens.py::make_round_collection`` in the port: a
+    round-lens collection over [lo, hi] degrees of simple, unoptimized
+    two-pillar cells."""
+    from metalens_tpu_torch import Grating, GratingCollection
+    angles = np.linspace(lo_deg, hi_deg, n_members) * math.pi / 180
+    lp_over_tan = 320 * NM / math.tan(angles[len(angles) // 2])
+    gs = []
+    for ang in angles:
+        gp = LAM / math.sin(ang)
+        frac = (ang - angles[0]) / (angles[-1] - angles[0] + 1e-12)
+        gs.append(Grating(
+            lateral_period=lp_over_tan * math.tan(ang), cyl_height=H,
+            grating_period=gp, xyrra_list_in_nm_deg=np.array(
+                [[-gp / NM / 4, 0.0, 90.0 + 5 * frac, 70.0, 0.0],
+                 [gp / NM / 4, 0.0, 70.0, 80.0 + 5 * frac, 0.0]])))
+    return GratingCollection(target_wavelength=LAM,
+                             lateral_period=lp_over_tan, lens_type="round",
+                             grating_list=gs)
+
+
+@contextlib.contextmanager
+def stage(times, name):
+    """Time the block by CUDA events on the current stream and by the host
+    clock (the block's work ends in a synchronize); store both in ms."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    yield
+    end.record()
+    torch.cuda.synchronize()
+    times[name] = (start.elapsed_time(end), (time.perf_counter() - t0) * 1e3)
+
+
+def lens_metrics(nf, ff, lps, lcs, hgs, d, half, spot_u, device="cuda"):
+    """The lens check of benchmarks/run_configs.py config 5 and
+    northstar2.py: an 'x' dipole at (0, 0, -d), the aperture
+    [-half, half]^2 at good_fft_number points per side, the stitch, the far
+    field and the focal metrics."""
+    from metalens_tpu_torch.geometry import good_fft_number
+    pts = np.linspace(-half, half, good_fft_number(2 * half / (LAM / 2.2)))
+    out = nf.build_nearfield(0.0, 0.0, -d, "x", LAM, lps, lcs, hgs, pts, pts,
+                             dipole_moment=1e-30, device=device)
+    far = ff.farfield(*out[:4], pts, pts, LAM, out[7], device=device)
+    P, tot, ux, uy, dux, duy = far
+    return out, far, ff.focal_metrics(P, ux, uy, dux, duy, tot, out[6],
+                                      spot_radius_u=spot_u)
+
+
+def classification(nf, lps, lcs, hgs, d, xs, ys, device):
+    """The stitch's point classification on ``device``: collection index,
+    centre flag, the grating copy's rotation (cos) and the centre site."""
+    import torch
+    X, Y = (p.contiguous() for p in torch.meshgrid(
+        torch.as_tensor(xs, device=device), torch.as_tensor(ys, device=device),
+        indexing="ij"))
+    planes = nf._geometry_planes(
+        X, Y, *nf._ring_tables(lps, device), lps["r_max_list"][-1], 0.0, 0.0,
+        -d, 2 * math.pi / LAM, [1, 0, 0], 1.0, 1e-30, True, False,
+        torch.complex64)
+    table, n1, n2 = nf._hex_site_table(lcs, hgs.sep, device)
+    rows, _ = nf._nearest_center_site(
+        X, Y, table, n1, n2, hgs.sep,
+        torch.as_tensor(lcs[:, 0:2], device=device))
+    return [planes[0].cpu(), planes[1].cpu(), planes[8].cpu(), rows.cpu()]
+
+
+def lens_phase(dev, results, path_launches, reset_counts, launch_counts):
+    """Phase 8: the lens check on the card -- characterized databases,
+    assembly, the near-field stitch, the far field and the focal metrics."""
+    import importlib
+    import torch
+    from metalens_tpu_torch import HexGridSet
+    from metalens_tpu_torch.assembly import make_design
+    from metalens_tpu_torch.engine import characterize_grating
+    from metalens_tpu_torch.solver import inv, taylor
+    nf = importlib.import_module("metalens_tpu_torch.nearfield")
+    ff = importlib.import_module("metalens_tpu_torch.farfield")
+    t8 = time.perf_counter()
+    deg = math.pi / 180
+
+    # 8a: benchmarks/run_configs.py config 5 at --scale small, on the card
+    # and on the CPU in complex128 (the same calls with device="cpu")
+    d, radius = 25e-6, 7.5e-6
+    hi = math.atan(radius / d) + 1 * deg
+
+    def config5(device):
+        gc = round_collection(8.0, hi / deg)
+        gc.characterize(LAM, numG=20, u_steps=3, device=device)
+        gc.build_interpolators(device=device)
+        hgs = HexGridSet(sep=320 * NM, cyl_height=H, num_entries=5)
+        hgs.characterize(wavelength=LAM, numG=20, just_normal=False,
+                         u_steps=3, device=device)
+        hgs.build_interpolators(device=device)
+        lps, lcs, _ = make_design([[(8.0 * deg, hi), gc]], d, radius, hgs)
+        out, _, m = lens_metrics(nf, ff, lps, lcs, hgs, d, 1.05 * radius,
+                                 0.15, device)
+        return out[0], m
+    got = {device: config5(device) for device in ("cuda", "cpu")}
+    for device, dtype in (("cuda", torch.complex64),
+                          ("cpu", torch.complex128)):
+        f = got[device][0]
+        require(f.device.type == device and f.dtype == dtype
+                and f.shape == (60, 60), f"config 5 near field on {device}: "
+                f"{f.device} {f.dtype} {tuple(f.shape)}")
+    m, m_cpu = got["cuda"][1], got["cpu"][1]
+    errs = {k: abs(m[k] - v) for k, v in CONFIG5_JAX.items()}
+    errs_cpu = {k: abs(m[k] - m_cpu[k]) for k in CONFIG5_JAX}
+    print(f"phase 8a config 5 (radius 7.5 um, source 25 um, numG=20, 60x60 "
+          f"aperture) on the card: transmission {m['transmission']:.6f}, "
+          f"spot fraction {m['spot_fraction_of_total']:.6f}, peak "
+          f"({m['peak_ux']:.4f}, {m['peak_uy']:.4f}); JAX package on the "
+          f"CPU (float32) {CONFIG5_JAX}: |diff| "
+          f"{ {k: float(f'{e:.3e}') for k, e in errs.items()} } (bound "
+          f"{TOL_CONFIG5}); the port on the CPU in complex128: transmission "
+          f"{m_cpu['transmission']:.7f}, spot fraction "
+          f"{m_cpu['spot_fraction_of_total']:.7f}, |card - CPU| "
+          f"{ {k: float(f'{e:.3e}') for k, e in errs_cpu.items()} }")
+    require(max(errs.values()) <= TOL_CONFIG5
+            and max(errs_cpu.values()) <= TOL_CONFIG5,
+            f"config 5 vs JAX: {errs}; card vs CPU: {errs_cpu}")
+    del got
+
+    # 8b: the production lens of benchmarks/northstar2.py at 580 nm, with
+    # unoptimized make_round_collection cells in its four brackets
+    d, radius = NS_SOURCE, NS_RADIUS
+    gcs = [round_collection(lo, hi) for lo, hi in NS_BRACKETS]
+    hgs = HexGridSet(sep=320 * NM, cyl_height=H, num_entries=NS_HEX_ENTRIES)
+    times = {}
+    members = [g for gc in gcs for g in gc.grating_list]
+    want = sweep_launches(members + hgs.grating_list, [LAM])
+    reset_counts()
+    with stage(times, "characterize 4 collections"):
+        for gc in gcs:
+            gc.characterize(LAM, numG=CHAR_NUMG, u_steps=5)
+    with stage(times, "characterize HexGridSet"):
+        hgs.characterize(wavelength=LAM, numG=CHAR_NUMG, just_normal=False,
+                         u_steps=5)
+    c = launch_counts()
+    path_launches["characterize lens"] = c
+    results["cinv"]["route_launches_by_path"]["characterize lens"] = dict(
+        inv.route_launches)
+    batches = ([len({(e["ux"], e["uy"]) for e in g.data}) for g in members]
+               + [len({(e["ux"], e["uy"]) for e in g.data})
+                  for g in hgs.grating_list])
+    print(f"phase 8b characterize lens numG={CHAR_NUMG} u_steps=5: "
+          f"{len(members)} collection members (B={batches[:len(members)]}) "
+          f"and {NS_HEX_ENTRIES} HexGridSet members (B={batches[-1]}); "
+          f"launches {c} (expected {want})")
+    require(all(v > 0 for v in c.values()) and c == want,
+            f"characterize lens: launches {c}, expected {want}")
+    with stage(times, "interpolators"):
+        for obj in (*gcs, hgs):
+            obj.build_interpolators()
+    collections = [[(lo * deg, hi * deg), gc]
+                   for (lo, hi), gc in zip(NS_BRACKETS, gcs)]
+    with stage(times, "make_design"):
+        lps, lcs, r_sw, xyrra = make_design(collections, d, radius, hgs,
+                                            make_xyrra_list=True)
+    torch.cuda.reset_peak_memory_stats()
+    with stage(times, "stitch + far field + focal metrics"):
+        out, far, m = lens_metrics(nf, ff, lps, lcs, hgs, d, 1.02 * radius,
+                                   0.1)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    pts = out[4]
+    P, tot, ux, uy, dux, duy = far
+    n = len(pts)
+    print(f"phase 8b design: {len(xyrra)} pillars, "
+          f"{len(lps['r_center_list'])} rings, {len(lcs)} centre sites, "
+          f"r_switch {r_sw * 1e6:.2f} um; aperture {n} x {n} = {n * n} "
+          f"points; peak device memory {peak_gib:.2f} GiB")
+    print(f"phase 8b focal metrics: transmission {m['transmission']:.6f}, "
+          f"spot fraction (0.1) {m['spot_fraction_of_total']:.6f}, peak "
+          f"({m['peak_ux']:.5f}, {m['peak_uy']:.5f}), total_P {tot:.6e}, "
+          f"power through the lens {out[6]:.6e}")
+    require(all(f.is_cuda and f.dtype == torch.complex64
+                and f.shape == (n, n) and bool(torch.isfinite(f).all())
+                for f in out[:4]), "8b near field: device, dtype, shape or "
+            "non-finite values")
+    require(0 < m["transmission"] <= 1 and tot <= out[6]
+            and abs(m["peak_ux"]) <= dux and abs(m["peak_uy"]) <= duy,
+            f"8b physics: {m}, total_P {tot}, through the lens {out[6]}")
+
+    # the stitch and the far field alone: CUDA events over repeated calls,
+    # the host clock, and one torch.profiler breakdown of each
+    def stitch():
+        return nf.build_nearfield(0.0, 0.0, -d, "x", LAM, lps, lcs, hgs,
+                                  pts, pts, dipole_moment=1e-30)
+
+    def far_field():
+        return ff.farfield(*out[:4], pts, pts, LAM, out[7])
+    for name, fn, iters in (("stitch", stitch, 2),
+                            ("far field", far_field, 5)):
+        ev_ms = cuda_ms(fn, iters)
+        wall = batch_ms(fn, windows=2, per_window=1)
+        times[f"{name} (repeat)"] = (ev_ms, wall)
+        profile(fn, f"8b {name} {n}x{n}", rows=12, wall_ms=wall)
+    print(f"phase 8b stage times (CUDA events ms, host ms): "
+          + "; ".join(f"{k} {a:.1f}, {b:.1f}" for k, (a, b) in times.items()))
+
+    # the near field against CPU complex128 on three slabs of 8 columns:
+    # the axis, the centre/periphery seam and the rim, from complex128
+    # tables built on the CPU from the same database entries
+    card_tables = [(obj, obj.interpolators) for obj in (*gcs, hgs)]
+    for obj in (*gcs, hgs):
+        obj.build_interpolators(device="cpu")
+    fmax = [f.abs().max().item() for f in out[:4]]
+    slab_err, n_class = {}, {}
+    t0 = time.perf_counter()
+    for name, y in (("axis", 0.0), ("seam", r_sw), ("rim", radius)):
+        c0 = int(np.argmin(np.abs(pts - y))) - 4
+        cols = slice(c0, c0 + 8)
+        ref = nf.build_nearfield(0.0, 0.0, -d, "x", LAM, lps, lcs, hgs, pts,
+                                 pts[cols], dipole_moment=1e-30,
+                                 device="cpu")
+        require(ref[0].dtype == torch.complex128, f"CPU slab {ref[0].dtype}")
+        slab_err[name] = max(
+            (f[:, cols].cpu().to(r.dtype) - r).abs().max().item() / fm
+            for f, r, fm in zip(out[:4], ref[:4], fmax))
+        cls = [classification(nf, lps, lcs, hgs, d, pts, pts[cols], dv)
+               for dv in (dev, "cpu")]
+        (g1, c1, r1, s1), (g2, c2, r2, s2) = cls
+        n_class[name] = int(((g1 != g2) | (c1 != c2)
+                             | ((r1 - r2).abs() > 1e-9)
+                             | (c1 & (s1 != s2))).sum())
+    for obj, tables in card_tables:
+        obj.interpolators = tables
+    slab_s = time.perf_counter() - t0
+    print(f"phase 8b near field vs CPU complex128 ({slab_s:.1f} s), slabs "
+          f"of 8 x {n} points, max |diff| over Ex, Ey, Hx, Hy "
+          f"as a share of each field's max: "
+          f"{ {k: float(f'{v:.3e}') for k, v in slab_err.items()} } (bound "
+          f"{TOL_NEARFIELD}); points classified differently: {n_class}")
+    require(max(slab_err.values()) <= TOL_NEARFIELD,
+            f"8b near field vs CPU: {slab_err}")
+
+    # the far field against farfield() in complex128 on the CPU, of the
+    # card's near field copied to the host
+    t0 = time.perf_counter()
+    Pr, totr, *_ = ff.farfield(*(f.cpu() for f in out[:4]), pts, pts, LAM,
+                               out[7], device="cpu")
+    mr = ff.focal_metrics(Pr, ux, uy, dux, duy, totr, out[6],
+                          spot_radius_u=0.1)
+    Pc = P.cpu().double()
+    fin = torch.isfinite(Pr)
+    require(bool((torch.isfinite(Pc) == fin).all()),
+            "8b far field: finite bins differ from the CPU's")
+    far_err = {"P": ((Pc - Pr)[fin].abs().max() / Pr[fin].max()).item(),
+               "total_P": abs(tot - totr) / totr}
+    for k in ("transmission", "spot_fraction_of_total"):
+        far_err[k] = abs(m[k] - mr[k]) / mr[k]
+    print(f"phase 8b far field vs CPU complex128 "
+          f"({time.perf_counter() - t0:.1f} s): relative errors "
+          f"{ {k: float(f'{v:.3e}') for k, v in far_err.items()} } (bound "
+          f"{TOL_FARFIELD}; P as a share of its max)")
+    require(max(far_err.values()) <= TOL_FARFIELD,
+            f"8b far field vs CPU: {far_err}")
+    del out, far, P, Pr, Pc
+
+    # the kernels at the lens-characterize inputs: one periphery member
+    # sweep (B = 25 directions) and one HexGridSet member sweep (B = 81)
+    peri = dict(collection_sweep(gcs[0], 5, CHAR_NUMG), wavelength=LAM)
+    hexa = dict(ux_min=-0.499, ux_max=0.501, uy_min=-0.499, uy_max=0.501,
+                u_steps=9, wavelength=LAM, numG=CHAR_NUMG)
+    runs = (lambda: characterize_grating(gcs[0].grating_list[0], **peri),
+            lambda: characterize_grating(hgs.grating_list[0], **hexa))
+    inv_caps = [a for run in runs for (a,) in capture(inv, "inv", run)]
+    tay_caps = [c for run in runs
+                for c in capture(taylor, "taylor_factors", run)]
+    kernels_at_inputs(dev, results, inv_caps, tay_caps, "characterize lens",
+                      "phase 8b")
+    print(f"phase 8 lens check: {time.perf_counter() - t8:.2f} s")
 
 
 def main():
@@ -1199,6 +1533,9 @@ def main():
     # ---- phase 7: the amplitude databases at numG = 100 -----------------
     characterize_phase(dev, gd, results, path_launches, reset_counts,
                        launch_counts)
+
+    # ---- phase 8: the lens check ----------------------------------------
+    lens_phase(dev, results, path_launches, reset_counts, launch_counts)
 
     # launches: the sum over the counted runs of each path
     kernels = [dict(name=name,

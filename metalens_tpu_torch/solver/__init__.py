@@ -11,4 +11,5 @@ Modules:
   taylor   -- thin-slab Taylor factors: CUDA kernel + plain version
   rcwa     -- eig-free S-matrix solver (thin-slab expm + Redheffer doubling)
   fom      -- figure of merit as data + scoring
+  fields   -- real-space E/H from a database entry set (copied, numpy)
 """

@@ -249,3 +249,73 @@ def test_characterize_three_wavelengths_against_plain_versions(cuda_device):
         worst = max(worst, max(abs(a[k] - b[k]) for k in
                                ("ampfy", "ampfx", "ampry", "amprx")))
     assert worst < 2e-3
+
+
+def _small_lens():
+    """A round collection over 15-32 degrees and a 3-entry HexGridSet,
+    characterized on the CPU at numG = 10, and the design of a lens of
+    5.5 um radius with its source 10 um away."""
+    from metalens_tpu_torch import (Grating, GratingCollection, HexGridSet,
+                                    make_design)
+    angles = np.linspace(15.0, 32.0, 3) * math.pi / 180
+    lp_over_tan = 320 * NM / math.tan(angles[1])
+    gs = [Grating(lateral_period=lp_over_tan * math.tan(a),
+                  cyl_height=H, grating_period=LAM / math.sin(a),
+                  xyrra_list_in_nm_deg=[[-LAM / math.sin(a) / NM / 4, 0., 90.,
+                                         70., 0.],
+                                        [LAM / math.sin(a) / NM / 4, 0., 70.,
+                                         80., 0.]])
+          for a in angles]
+    gc = GratingCollection(LAM, lp_over_tan, "round", gs)
+    gc.characterize(LAM, numG=10, u_steps=2, device="cpu")
+    hgs = HexGridSet(sep=320 * NM, cyl_height=H, num_entries=3)
+    hgs.characterize(wavelength=LAM, numG=10, just_normal=False, u_steps=2,
+                     device="cpu")
+    lps, lcs, _ = make_design([[(angles[0], angles[-1]), gc]], 10e-6,
+                              5.5e-6, hgs)
+    return gc, hgs, lps, lcs
+
+
+@pytest.mark.cuda
+def test_stitch_on_cuda_against_cpu(cuda_device):
+    """The near-field stitch of a small lens on the card (complex64 tables
+    and fields, float64 geometry) against the same stitch in complex128 on
+    the CPU, from the same databases."""
+    from metalens_tpu_torch.nearfield import build_nearfield
+    gc, hgs, lps, lcs = _small_lens()
+    pts = np.linspace(-6.3e-6, 6.3e-6, 48)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        for obj in (gc, hgs):
+            obj.build_interpolators(device=dev)
+        out[dev] = build_nearfield(0.0, 0.0, -10e-6, "x", LAM, lps, lcs, hgs,
+                                   pts, pts, dipole_moment=1e-30, device=dev)
+    for got, want in zip(out["cuda"][:4], out["cpu"][:4]):
+        assert got.is_cuda and got.dtype == torch.complex64
+        assert want.dtype == torch.complex128
+        err = (got.cpu().to(want.dtype) - want).abs().max()
+        assert err <= 1e-5 * want.abs().max()
+    assert abs(out["cuda"][6] - out["cpu"][6]) <= 1e-12 * out["cpu"][6]
+
+
+@pytest.mark.cuda
+def test_farfield_on_cuda_against_cpu(cuda_device):
+    """farfield on the card (complex64 FFT) against complex128 on the CPU,
+    on a non-square aperture of structured and noisy fields."""
+    import importlib
+    ff = importlib.import_module("metalens_tpu_torch.farfield")
+    rng = np.random.default_rng(5)
+    nx, ny, dx = 96, 80, LAM / 2.2
+    xs, ys = (np.arange(nx) - nx / 2) * dx, (np.arange(ny) - ny / 2) * dx
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    phase = np.exp(2j * np.pi * NG / LAM * (0.2 * X - 0.1 * Y))
+    fields = [phase * (1 + 0.1 * rng.standard_normal((nx, ny)))
+              for _ in range(4)]
+    got = ff.farfield(*fields, xs, ys, LAM, NG)
+    want = ff.farfield(*fields, xs, ys, LAM, NG, device="cpu")
+    assert got[0].is_cuda and got[0].dtype == torch.float32
+    P, Pr = got[0].cpu().double(), want[0]
+    fin = torch.isfinite(Pr)
+    assert bool((torch.isfinite(P) == fin).all())
+    assert (P - Pr)[fin].abs().max() <= 1e-5 * Pr[fin].max()
+    assert abs(got[1] - want[1]) <= 1e-5 * abs(want[1])

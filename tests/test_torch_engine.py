@@ -18,7 +18,7 @@ from metalens_tpu_torch.convert import grating_from_arrays, \
 from metalens_tpu_torch.solver.fom import DEFAULT_FOM_TERMS as TDEFAULT, \
     FomTerm as TFomTerm
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 NUMG = 15
 XY_NM_DEG = np.array([[-215., 2., 144., 111., 0.], [196., -8., 100., 130., 6.]])

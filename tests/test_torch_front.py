@@ -14,7 +14,7 @@ from metalens_tpu.units import nm
 from metalens_tpu_torch.solver import basis as tbasis, epsilon as teps, \
     fff as tfff, special as tspecial
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 TOL = 1e-10   # float64 on both sides, same formulas
 LX, LY = 1200 * nm, 320 * nm

@@ -10,9 +10,11 @@ def test_port_imports_no_jax():
         "import metalens_tpu_torch, metalens_tpu_torch.engine, "
         "metalens_tpu_torch.convert, metalens_tpu_torch.grating, "
         "metalens_tpu_torch.optimize, metalens_tpu_torch.characterize, "
-        "metalens_tpu_torch.hexgrid, metalens_tpu_torch.serialization\n"
+        "metalens_tpu_torch.hexgrid, metalens_tpu_torch.serialization, "
+        "metalens_tpu_torch.assembly, metalens_tpu_torch.nearfield, "
+        "metalens_tpu_torch.farfield\n"
         "from metalens_tpu_torch.solver import basis, cpx, epsilon, fff, "
-        "fom, inv, orders, rcwa, special, taylor\n"
+        "fields, fom, inv, orders, rcwa, special, taylor\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'metalens_tpu.')))\n"
         "assert not bad, bad\n")

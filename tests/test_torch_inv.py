@@ -16,7 +16,7 @@ from metalens_tpu.units import nm
 from metalens_tpu_torch import _cuda
 from metalens_tpu_torch.solver import cpx as tcpx, inv as tinv
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

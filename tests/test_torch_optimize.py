@@ -1,7 +1,8 @@
 """The port's scene pieces and host optimizers against the JAX package at
 float64 on the CPU: validate, resize, GratingCollection, the constraint
 penalty, seeded optimize / optimize2 runs, optimize_gradient's iterates
-(optax's Adam on the JAX side) and one vary_angle member."""
+(optax's Adam on the JAX side), fom_value_and_grad on the same compiled
+JAX program, and one vary_angle member."""
 
 import importlib
 import math
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 import metalens_tpu.optimize as jopt
+from metalens_tpu import engine as jengine
 from metalens_tpu.grating import (Grating as JGrating,
                                   GratingCollection as JCollection,
                                   resize as jresize, validate as jvalidate)
@@ -33,7 +35,7 @@ from metalens_tpu_torch.solver.fom import FomTerm as TFomTerm
 # the module's name, as the JAX package does
 topt_module = importlib.import_module("metalens_tpu_torch.optimize")
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 NUMG = 15
 LAM = 580 * nm
@@ -42,6 +44,9 @@ LAM = 580 * nm
 XY_NM_DEG = np.array([[-215., 2., 144., 105., 0.], [196., -8., 100., 102., 6.]])
 TERMS = [(580 * nm, 1.0, -1, True), (450 * nm, 0.5, 0, False)]
 GRADIENT_STEPS = 5
+# the gradient parity cell: the bench cell's pillars, rotated
+GRAD_XY_NM_DEG = np.array([[-215., 2., 144., 111., 0.],
+                           [196., -8., 100., 130., 6.]])
 
 
 def _jax_grating(xy=XY_NM_DEG, grating_period=1200 * nm, lateral_period=320 * nm):
@@ -307,6 +312,46 @@ def test_optimize_gradient_iterates_match_jax(jax_runs, monkeypatch):
         _assert_same_xyrra(x_got, x_want)
     _assert_same_xyrra(got.xyrra_list, jax_runs["gradient"].xyrra_list)
     assert np.abs(want[-1] - want[0])[:, :4].min() > 0.1 * nm
+
+
+@pytest.fixture(scope="module")
+def jax_value_and_grad():
+    """The JAX engine's FOM and gradient of the two-pillar cell, and a
+    second geometry, from one compiled value-and-grad program (the one
+    optimize_gradient compiled in ``jax_runs``)."""
+    jg = JGrating(lateral_period=320 * nm, grating_period=1200 * nm,
+                  cyl_height=550 * nm, xyrra_list_in_nm_deg=GRAD_XY_NM_DEG)
+    vg = jengine.fom_value_and_grad(jg, 580 * nm, NUMG,
+                                    [JFomTerm(*t) for t in TERMS])
+    step = np.array([[1, -2, 3, 0, 0], [-2, 1, 0, 2, 0]]) * nm
+    step[:, 4] = [0.01, -0.02]          # radians
+    out = []
+    for xy in (jg.xyrra_list, jg.xyrra_list + step):
+        f, g = vg(xy)
+        out.append((xy, float(f), np.asarray(g)))
+    return jg, out
+
+
+def test_fom_value_and_grad_matches_jax(jax_value_and_grad):
+    jg, cases = jax_value_and_grad
+    tg = grating_from_reference(jg)
+    vg = tengine.fom_value_and_grad(tg, 580 * nm, NUMG,
+                                    [TFomTerm(*t) for t in TERMS],
+                                    device="cpu")
+    for xy, want_f, want_g in cases:
+        fom, grad = vg(xy)
+        assert fom.ndim == 0 and fom.dtype == torch.float64
+        assert grad.shape == (2, 5) and grad.dtype == torch.float64
+        assert abs(fom.item() - want_f) < 1e-10
+        scale = np.abs(want_g).max()
+        assert np.abs(grad.numpy() - want_g).max() < 1e-7 * scale
+        # no gradient component is zero by symmetry in this cell
+        assert np.abs(want_g).min() > 1e-12 * scale
+    # the value agrees with the FOM entry point
+    assert abs(vg(tg.xyrra_list)[0].item()
+               - tengine.fom_of_grating(tg, 580 * nm, NUMG,
+                                        [TFomTerm(*t) for t in TERMS],
+                                        device="cpu")) < 1e-13
 
 
 @pytest.mark.parametrize("route", ["derivative_free", "gradient"])

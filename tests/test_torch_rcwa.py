@@ -16,7 +16,7 @@ from metalens_tpu.units import nm
 from metalens_tpu_torch.solver import basis as tbasis, cpx as tcpx, \
     rcwa as trcwa
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 LX, LY, LAM, H = 1200 * nm, 320 * nm, 580 * nm, 550 * nm
 NT, NG = 2.372, 1.459

@@ -14,7 +14,7 @@ from metalens_tpu.solver import cpx as jcpx, pallas_taylor as jpt
 from metalens_tpu_torch import _cuda
 from metalens_tpu_torch.solver import taylor as ttay
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _rand_fg(rng, B, n, scale=0.35):
