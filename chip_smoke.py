@@ -30,14 +30,23 @@ values, then ``benchmarks/northstar2.py``'s 0.5 mm collimator at 580 nm
 points, the far field, the focal metrics), with near-field slabs and the
 far field held to CPU complex128, the kernels held to their plain versions
 on the lens's characterize inputs, and the stages timed and profiled.
+Phase 9 drives the fused design loop at ``benchmarks/northstar2.py``'s
+design config (5 pillars at 19.7 deg, its RGB terms, numG = 50):
+``optimize_fused`` then ``optimize2_fused`` (40 attempts) with the loop's
+FOM held to ``Grating.fom`` on the card and to CPU complex128, the same
+member again (identical), ``feasible_traced`` on the card against the
+host's float64 ``validate``, a two-member ``vary_angle(use_fused=True)``
+continuation with NS2's steps, and the kernels held to their plain versions
+on a screen and a walk batch; it counts launches against the schedule, host
+syncs per FOM batch and per round, and times and profiles a round.
 
     python3 chip_smoke.py
 
 Every phase is fatal: a failed check exits nonzero.  The last two lines of
 standard output are a JSON object describing each kernel (launches in the
 counted runs of the main path at numG = 50 and numG = 100, of one
-``fom_value_and_grad`` call and of the characterize sweeps, summed and per
-path, with the inverse's per route; error against the plain version;
+``fom_value_and_grad`` call, of the characterize sweeps and of the fused
+member, summed and per path, with the inverse's per route; error against the plain version;
 times and bound at the main path's bench size, and the same per size
 under ``sizes``) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits nonzero
@@ -87,6 +96,14 @@ TOL_FARFIELD = 1e-4   # far field on the card vs CPU complex128
 NS_RADIUS, NS_SOURCE = 250e-6, 150e-6
 NS_BRACKETS = ((20.0, 27.0), (27.0, 37.0), (37.0, 48.0), (48.0, 59.5))
 NS_HEX_ENTRIES = 16
+# benchmarks/northstar2.py's design config: _rgb_terms (equal weights, in
+# phase at 580 nm and magnitude at 650 and 450 nm, order -1), numG = 50 and
+# its continuation steps; benchmarks/bench_design_member_fused.py's member
+NS2_RGB_TERMS = ((650, False), (580, True), (450, False))
+NS2_DESIGN_NUMG = 50
+NS2_CHANGE_EACH_STEP, NS2_SIMILARITY = 1.05, 0.15
+FUSED_PILLARS, FUSED_ANGLE_DEG, FUSED_ATTEMPTS = 5, 19.7, 40
+TOL_FUSED_FOM = 1e-5      # the loop's returned FOM vs Grating.fom on the card
 PEAK_F32 = 67e12          # flop/s, f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
@@ -234,8 +251,9 @@ def profile(fn, label, rows=10, wall_ms=None):
     idle = ("" if wall_ms is None else
             f"; against {wall_ms:.3f} ms of wall per call the device idles "
             f"{100 * (1 - total / wall_ms):.1f}%")
-    print(f"profile {label}: self device time {total:.3f} ms, "
-          f"wall {wall:.3f} ms under the profiler{idle}")
+    print(f"profile {label}: self device time {total:.3f} ms in "
+          f"{sum(e.count for e in events)} device operations, wall "
+          f"{wall:.3f} ms under the profiler{idle}")
     for e in sorted(events, key=dev_us, reverse=True)[:rows]:
         print(f"profile {label}:   {dev_us(e) / 1e3:9.3f} ms "
               f"{e.count:5d} calls  {e.key[:80]}")
@@ -391,7 +409,8 @@ def interp_errors(tables, tables_cpu, pts, by_key):
     return rand, node
 
 
-def kernels_at_inputs(dev, results, inv_caps, tay_caps, path, label):
+def kernels_at_inputs(dev, results, inv_caps, tay_caps, path, label,
+                      numG=CHAR_NUMG):
     """Hold the kernels to their plain versions on captured inputs of a
     path (inverse batches; Taylor calls as (F, G, t, terms)), then time
     each size in turns against the plain version beside its bound and add
@@ -436,7 +455,7 @@ def kernels_at_inputs(dev, results, inv_caps, tay_caps, path, label):
                            lambda: inv.inv_cuda(A), 20)
         b_ms, b_by = bound_ms(8 * n ** 3 * B, 2 * 8 * n * n * B)
         results["cinv"]["sizes"].append(dict(
-            path=path, numG=CHAR_NUMG, n=n, B=B, ms=k_ms, plain_ms=p_ms,
+            path=path, numG=numG, n=n, B=B, ms=k_ms, plain_ms=p_ms,
             library_ms=p_ms, bound_ms=b_ms, bound_by=b_by))
         print(f"{label} time inverse n={n} B={B}: kernel {k_ms:.4f} ms, "
               f"torch.linalg.inv {p_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by})")
@@ -942,6 +961,319 @@ def lens_phase(dev, results, path_launches, reset_counts, launch_counts):
     kernels_at_inputs(dev, results, inv_caps, tay_caps, "characterize lens",
                       "phase 8b")
     print(f"phase 8 lens check: {time.perf_counter() - t8:.2f} s")
+
+
+def rgb_terms():
+    """benchmarks/northstar2.py's _rgb_terms on the port."""
+    from metalens_tpu_torch.solver.fom import FomTerm
+    return [FomTerm(lam * NM, 1.0, -1, inphase)
+            for lam, inphase in NS2_RGB_TERMS]
+
+
+def seed_grating(angle_deg, n_pillars):
+    """benchmarks/northstar2.py's _seed_grating on the port: n pillars
+    across the supercell with ramped radii, shrunk until validate()
+    passes."""
+    from metalens_tpu_torch import Grating, validate
+    angle = angle_deg * math.pi / 180
+    period_nm = 580.0 / math.sin(angle)
+    rows = []
+    for i in range(n_pillars):
+        f = i / max(n_pillars - 1, 1)
+        rows.append([-period_nm / 2 + (i + 0.5) * period_nm / n_pillars, 0.0,
+                     60.0 + 55.0 * f, 68.0 + 42.0 * f, 0.0])
+    g = Grating(lateral_period=320 * NM, cyl_height=550 * NM,
+                target_wavelength=LAM, angle_in_air=angle,
+                xyrra_list_in_nm_deg=np.array(rows))
+    for _ in range(30):
+        if validate(g):
+            return g
+        g.xyrra_list[:, 2:4] *= 0.95
+    raise SystemExit(f"chip_smoke: no feasible seed at {angle_deg} deg")
+
+
+@contextlib.contextmanager
+def fused_spies(fused, rec):
+    """Record, in ``rec``, the batch size of every FOM batch of the fused
+    loops and the return of every coordinate-descent dispatch ("cd") and
+    random-perturbation run ("rp")."""
+    orig = fused._fom_eval, fused._cd_run, fused._rp_run
+
+    def fom_spy(rows, *args, **kwargs):
+        rec["batches"].append(rows.shape[0])
+        return orig[0](rows, *args, **kwargs)
+
+    def recording(make, key):
+        def config(*static):
+            run = make(*static)
+
+            def rec_run(*args):
+                out = run(*args)
+                rec[key].append(out)
+                return out
+            return rec_run
+        return config
+
+    fused._fom_eval = fom_spy
+    fused._cd_run = recording(orig[1], "cd")
+    fused._rp_run = recording(orig[2], "rp")
+    try:
+        yield rec
+    finally:
+        fused._fom_eval, fused._cd_run, fused._rp_run = orig
+
+
+def fused_phase(dev, results, path_launches, reset_counts, launch_counts):
+    """Phase 9: the fused design loop on the card at the production design
+    config (5 pillars, 19.7 deg, the RGB terms, numG = 50)."""
+    import importlib
+    import warnings
+    import torch
+    from metalens_tpu_torch import validate, vary_angle
+    from metalens_tpu_torch.engine import static_solve_config
+    from metalens_tpu_torch.grating import min_diameter, min_distance
+    from metalens_tpu_torch.solver import inv, taylor
+    fused = importlib.import_module("metalens_tpu_torch.optimize_fused")
+    opt_module = importlib.import_module("metalens_tpu_torch.optimize")
+    t9 = time.perf_counter()
+    deg = math.pi / 180
+    terms, numG, nE = rgb_terms(), NS2_DESIGN_NUMG, FUSED_PILLARS
+    g0 = seed_grating(FUSED_ANGLE_DEG, nE)
+    _, n_s, n_t, _ = static_solve_config(g0, [t.wavelength for t in terms],
+                                         numG, torch.complex64)
+    # per FOM batch and term: <<1/eps>>^-1, E^-1 at N, the slab, each
+    # doubling, the inner and the outer star; one Taylor call
+    per_batch = {"cinv": len(terms) * (5 + int(math.log2(n_s))),
+                 "taylor": len(terms) * taylor_work(2 * numG, 1, n_t)[2],
+                 "taylor_chunks": len(terms)}
+
+    def fom_card(g):
+        return g.fom(LAM, numG=numG, terms=terms)
+
+    def member(g, seed, **kw):
+        """optimize_fused then optimize2_fused on the card, timed by the
+        host clock and by CUDA events; the loops' batches and returns."""
+        rec = {"batches": [], "cd": [], "rp": []}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        with fused_spies(fused, rec):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            g1 = fused.optimize_fused(g, LAM, numG=numG, terms=terms,
+                                      seed=seed, verbose=False, **kw)
+            ev[1].record()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cd_batches = len(rec["batches"])
+            g2 = fused.optimize2_fused(g1, LAM, attempts=FUSED_ATTEMPTS,
+                                       numG=numG, terms=terms, seed=seed + 1,
+                                       verbose=False, **kw)
+            ev[2].record()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        x, fom, tried, accepted = rec["rp"][-1]
+        require(x.dtype == torch.float32 and fom.dtype == torch.float32
+                and x.is_cuda, f"fused loop state {x.dtype} {fom.dtype} "
+                f"{x.device}")
+        rounds = sum(out[3] for out in rec["cd"])
+        require(rec["cd"][-1][2], "optimize_fused ended without a stall")
+        return g2, dict(
+            wall_s=t2 - t0, cd_s=t1 - t0, rp_s=t2 - t1,
+            cd_ms=ev[0].elapsed_time(ev[1]), rp_ms=ev[1].elapsed_time(ev[2]),
+            rounds=rounds, cd_batches=cd_batches,
+            rp_batches=len(rec["batches"]) - cd_batches, tried=tried,
+            rp_accepted=int(accepted), fom=float(fom),
+            batch_sizes=sorted(set(rec["batches"])))
+
+    def report(label, info):
+        r = info["rounds"]
+        print(f"phase 9 {label}: {info['wall_s']:.2f} s (optimize_fused "
+              f"{info['cd_s']:.2f} s: {r} rounds, {r - 1} accepted moves, "
+              f"{info['cd_batches']} FOM batches, {info['cd_ms'] / r:.2f} ms "
+              f"per round by CUDA events, {info['cd_s'] * 1e3 / r:.2f} ms by "
+              f"the host clock; optimize2_fused {info['rp_s']:.2f} s: "
+              f"{info['tried']} attempts, {info['rp_accepted']} accepted, "
+              f"{info['rp_batches']} FOM batches, "
+              f"{info['rp_ms'] / info['tried']:.2f} ms per attempt by CUDA "
+              f"events, {info['rp_s'] * 1e3 / info['tried']:.2f} ms by the "
+              f"host clock); batch sizes {info['batch_sizes']}")
+
+    # 9a: benchmarks/bench_design_member_fused.py's member on the card
+    f_start = fom_card(g0)
+    reset_counts()
+    g_m, info = member(g0, 1000)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    path_launches[f"fused member numG={numG}"] = counts
+    batches = info["cd_batches"] + info["rp_batches"]
+    expect = {k: v * batches for k, v in per_batch.items()}
+    report(f"9a member ({nE} pillars, {FUSED_ANGLE_DEG} deg, RGB terms, "
+           f"numG={numG}, attempts={FUSED_ATTEMPTS})", info)
+    print(f"phase 9a launches {counts} in {batches} FOM batches, expected "
+          f"{expect} ({per_batch} per batch, {n_s} slabs, {n_t} Taylor "
+          f"terms; a coordinate-descent round is 2 batches: "
+          f"{ {k: 2 * v for k, v in per_batch.items()} })")
+    require(all(v > 0 for v in counts.values()) and counts == expect,
+            f"fused member launches {counts}, expected {expect}")
+    f_end = fom_card(g_m)
+    f_cpu = g_m.fom(LAM, numG=numG, terms=terms, device="cpu")
+    ok = validate(g_m)
+    print(f"phase 9a fom {f_start:.6f} (seed) -> {f_end:.6f} (Grating.fom "
+          f"on the card); the loop returned {info['fom']:.6f}, |diff| "
+          f"{abs(info['fom'] - f_end):.3e} (bound {TOL_FUSED_FOM}); CPU "
+          f"complex128 {f_cpu:.6f}, |card - CPU| {abs(f_end - f_cpu):.3e} "
+          f"(bound {TOL_GUARD}); validate: {ok}")
+    require(ok, "the fused member fails validate")
+    require(f_end >= f_start, f"fused member fom {f_start} -> {f_end}")
+    require(abs(info["fom"] - f_end) <= TOL_FUSED_FOM,
+            f"loop fom {info['fom']} vs Grating.fom {f_end}")
+    require(abs(f_end - f_cpu) <= TOL_GUARD, f"card vs CPU: {f_end} {f_cpu}")
+
+    # 9d: the same member again with the same seed
+    g_again, info2 = member(g0, 1000)
+    report("9d the same member again", info2)
+    same = (np.array_equal(g_again.xyrra_list, g_m.xyrra_list)
+            and info2["fom"] == info["fom"])
+    print(f"phase 9d same seed, identical result: {same}")
+    require(same, "the fused member is not reproducible on the card")
+
+    # 9b: device feasibility in float32 (margin 1e-5) against the host's
+    # float64 validate, around the seed under NS2's trust region
+    rng = np.random.default_rng(9)
+    sim = g0.xyrra_list
+    n_geo = 400
+    scale = np.geomspace(1.0, 40.0, n_geo)[:, None, None]
+    xs = sim + rng.normal(size=(n_geo,) + sim.shape) * scale * NM
+    xs[..., 4] = sim[:, 4] + (rng.normal(size=(n_geo, nE)) * scale[:, :, 0]
+                              * 0.2 * deg)
+
+    def f32(v):
+        return torch.as_tensor(np.asarray(v), dtype=torch.float32,
+                               device=dev)
+    dev_ok = fused.feasible_traced(
+        f32(xs), g0.grating_period, g0.lateral_period, f32(min_diameter / 2),
+        f32(min_distance), sim=f32(sim), how_similar=f32(NS2_SIMILARITY),
+        margin=1e-5).cpu().numpy()
+    host_ok = []
+    for x in xs:
+        gg = g0.copy()
+        gg.xyrra_list = x
+        host_ok.append(validate(gg, similar_to=sim,
+                                how_similar=NS2_SIMILARITY))
+    host_ok = np.array(host_ok)
+    wrong = int((dev_ok & ~host_ok).sum())
+    print(f"phase 9b feasible_traced on the card (float32, margin 1e-5) on "
+          f"{n_geo} geometries: {int(dev_ok.sum())} accepted, host float64 "
+          f"validate accepts {int(host_ok.sum())}; device accepts the host "
+          f"refuses: {wrong}; host accepts the device refuses: "
+          f"{int((host_ok & ~dev_ok).sum())}")
+    require(wrong == 0 and dev_ok.sum() > 0,
+            f"{wrong} device accepts fail the host's validate")
+
+    # 9c: a continuation from the 9a member with NS2's steps, two members
+    a0 = g_m.get_angle_in_air(LAM)
+    rungs = [math.atan(NS2_CHANGE_EACH_STEP ** k * math.tan(a0))
+             for k in (2, 3)]
+    starts, members = [], []
+    orig_cd, orig_rp = opt_module.optimize_fused, opt_module.optimize2_fused
+
+    def cd_spy(g, **kw):
+        starts.append(g.copy())
+        return orig_cd(g, **kw)
+
+    def rp_spy(g, **kw):
+        members.append(orig_rp(g, **kw))
+        return members[-1]
+    opt_module.optimize_fused, opt_module.optimize2_fused = cd_spy, rp_spy
+    try:
+        t0 = time.perf_counter()
+        gc = vary_angle(g_m, sum(rungs) / 2, "round", LAM, numG=numG,
+                        terms=terms, use_fused=True,
+                        optimize2_attempts=FUSED_ATTEMPTS, verbose=False,
+                        change_each_step=NS2_CHANGE_EACH_STEP,
+                        similarity_each_step=NS2_SIMILARITY,
+                        rng=np.random.default_rng(0))
+        torch.cuda.synchronize()
+        vary_s = time.perf_counter() - t0
+    finally:
+        opt_module.optimize_fused, opt_module.optimize2_fused = orig_cd, orig_rp
+    require(len(gc.grating_list) == 3 and len(members) == 2,
+            f"the continuation made {len(members)} members, expected 2")
+    for k, (st, mem) in enumerate(zip(starts, members), start=1):
+        ok = validate(mem, similar_to=st.xyrra_list,
+                      how_similar=NS2_SIMILARITY)
+        f0, f1 = fom_card(st), fom_card(mem)
+        print(f"phase 9c member {k} ({mem.get_angle_in_air(LAM) / deg:.3f} "
+              f"deg, period {mem.grating_period / NM:.1f} nm): fom "
+              f"{f0:.6f} (resized seed) -> {f1:.6f}; validate under the "
+              f"{NS2_SIMILARITY:.0%} trust region: {ok}")
+        require(ok and f1 >= f0, f"continuation member {k}: {ok} {f0} {f1}")
+    print(f"phase 9c vary_angle(use_fused=True), 2 members: {vary_s:.2f} s "
+          f"({vary_s / 2:.2f} s per member)")
+
+    # 9e: the kernels at the inputs of a screen batch (B = 2*nE*5) and of a
+    # walk batch (B = 9) at the member, then the host reads and the device
+    # time of one coordinate-descent round
+    config, trust, cell, rdt = fused._member_inputs(
+        g0, LAM, numG, terms, None, None, None, None, dev, None)
+    fom1 = fused._fom_fn(*config)
+    x = torch.as_tensor(g_m.xyrra_list, dtype=rdt, device=dev)
+    dirs = fused._unit_directions(nE, rdt, dev)
+    ks = torch.arange(2, 11, dtype=rdt, device=dev)
+    screen = (x[None] + dirs).contiguous()
+    walk = (x[None] + ks[:, None, None] * dirs[1]).contiguous()
+    runs = [lambda: fom1(screen, *cell), lambda: fom1(walk, *cell)]
+    with torch.no_grad():
+        inv_caps = [A for run in runs for (A,) in capture(inv, "inv", run)]
+        tay_caps = [c for run in runs
+                    for c in capture(taylor, "taylor_factors", run)]
+        kernels_at_inputs(dev, results, inv_caps, tay_caps,
+                          f"fused member numG={numG}", "phase 9e",
+                          numG=numG)
+    del inv_caps, tay_caps
+
+    def sync_sites(fn):
+        """Host syncs during fn() by torch.cuda.set_sync_debug_mode, by the
+        site in the repo that caused each (torch's own frames apart)."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        sites = {}
+        for w in caught:
+            if "synchroniz" in str(w.message):
+                path = os.path.relpath(w.filename, REPO)
+                key = ("(torch)" if path.startswith("..")
+                       else f"{path}:{w.lineno}")
+                sites[key] = sites.get(key, 0) + 1
+        return dict(sorted(sites.items(), key=lambda kv: -kv[1]))
+
+    x0 = torch.as_tensor(g0.xyrra_list, dtype=rdt, device=dev)
+    draws = fused.TorchDraws(0, dev, rdt)
+    run1, run3 = (fused._cd_run(*config, nE, r, 10) for r in (1, 3))
+
+    def one_round():
+        return run1(x0, *trust, draws, *cell)
+    one_round()
+    torch.cuda.synchronize()
+    batch_sites = sync_sites(lambda: fom1(screen, *cell))
+    round_sites = sync_sites(lambda: run3(x0, *trust, draws, *cell))
+    in_batch = sum(v for k, v in batch_sites.items() if k != "(torch)")
+    in_rounds = sum(v for k, v in round_sites.items() if k != "(torch)")
+    print(f"phase 9e host syncs in the repo's code: one screen FOM batch "
+          f"(B={2 * nE * 5}) {in_batch} {batch_sites}; one dispatch of 3 "
+          f"rounds from the seed (its start's FOM batch, then 2 batches a "
+          f"round) {in_rounds}, by site {round_sites}")
+    require(in_batch == 0, f"host syncs inside a FOM batch: {batch_sites}")
+    round_ms = batch_ms(one_round)
+    print(f"phase 9e one dispatch of one round: {round_ms:.2f} ms of wall "
+          f"(best of 3 windows of 2)")
+    profile(one_round, "fused dispatch of one round", rows=12,
+            wall_ms=round_ms)
+    print(f"phase 9 fused design loop: {time.perf_counter() - t9:.2f} s")
 
 
 def main():
@@ -1536,6 +1868,9 @@ def main():
 
     # ---- phase 8: the lens check ----------------------------------------
     lens_phase(dev, results, path_launches, reset_counts, launch_counts)
+
+    # ---- phase 9: the fused design loop ----------------------------------
+    fused_phase(dev, results, path_launches, reset_counts, launch_counts)
 
     # launches: the sum over the counted runs of each path
     kernels = [dict(name=name,

@@ -1,7 +1,8 @@
 """metalens_tpu_torch -- the PyTorch/CUDA port of :mod:`metalens_tpu`.
 
 The unit-cell RCWA solve, the figure of merit and its shape gradient, the
-design loop (the host optimizers and ``vary_angle``), the amplitude
+design loop (the host optimizers, the fused ratchets with their accept
+logic on the device, and ``vary_angle``), the amplitude
 databases (characterize, the interpolators, ``HexGridSet``, npz save and
 load) and the lens check (assembly, the near-field stitch, the far field
 and its focal metrics) run here in PyTorch, with
@@ -22,6 +23,11 @@ from .solver.fom import FomTerm, DEFAULT_FOM_TERMS  # noqa: F401
 from .engine import fom_value_and_grad  # noqa: F401
 from .optimize import (optimize, optimize2, optimize_gradient,  # noqa: F401
                        vary_angle)
+# the function ``optimize_fused`` takes the package attribute of the module
+# of the same name, as ``farfield`` does below: reach the module by
+# importlib.import_module("metalens_tpu_torch.optimize_fused")
+from .optimize_fused import (optimize_fused, optimize2_fused,  # noqa: F401
+                             optimize_multistart)
 from .hexgrid import HexGridSet  # noqa: F401
 from .serialization import save, load  # noqa: F401
 from .assembly import make_design  # noqa: F401

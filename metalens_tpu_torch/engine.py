@@ -193,7 +193,7 @@ def _fom_eval(xyrra, mx, my, i0, tgt, Lx, Ly, h, eps_p, eps_g, lam, ux,
             _, M_blocks = nv_blocks_from_structure(
                 S_struct, at_zero, eps_p[t], P_blocks,
                 hermitian=hermitian_eps, E=E)
-        ux_t = torch.tensor(ux[t], dtype=rdt, device=dev)
+        ux_t = torch.full((), ux[t], dtype=rdt, device=dev)
         cy_s, cx_s = basis.incident_sp_amplitudes(ux_t, zero, "s")
         cy_p, cx_p = basis.incident_sp_amplitudes(ux_t, zero, "p")
         c = torch.zeros((2 * N, 2), dtype=cdt, device=dev)

@@ -10,7 +10,8 @@ Counterpart of ``metalens_tpu/optimize.py``:
   derivatives (:func:`metalens_tpu_torch.engine.fom_value_and_grad`), with
   the validate() constraints as differentiable penalties;
 * :func:`vary_angle` -- the continuation over deflection angle that builds
-  a :class:`GratingCollection`.
+  a :class:`GratingCollection` (with ``use_fused=True``, its members go
+  through :mod:`metalens_tpu_torch.optimize_fused`).
 
 The derivative-free optimizers evaluate their candidates in batches
 (:class:`_BatchedProbe`); the acceptance ratchet runs on the host.  Every
@@ -33,6 +34,7 @@ from .engine import (_device, fom_batch_fn, fom_of_grating,
                      fom_value_and_grad, static_envelope)
 from .grating import (GratingCollection, min_diameter, min_distance,
                       resize, validate)
+from .optimize_fused import optimize_fused, optimize2_fused
 from .solver import cpx
 from .solver.fom import DEFAULT_FOM_TERMS
 from .units import degree, inf, nm, pi
@@ -473,12 +475,18 @@ def vary_angle(start_grating=None, end_angle=None, lens_type=None,
     :func:`optimize2` (derivative-free, the default), or with
     ``use_gradient=True`` :func:`optimize_gradient` then :func:`optimize2`.
     ``rng``: optional numpy Generator threaded into every inner call.
-    ``use_fused`` (the on-device ratchet loop) and its ``min_gap`` are not
-    ported yet (ROADMAP.md)."""
-    if use_fused:
-        raise NotImplementedError(
-            "use_fused=True needs optimize_fused, which the port does not "
-            "have yet (ROADMAP.md, 'What is left')")
+
+    ``use_fused=True`` routes each member through
+    :func:`~metalens_tpu_torch.optimize_fused.optimize_fused` then
+    ``optimize2_fused`` (the accept logic on the device); their seeds are
+    drawn from ``rng`` (or ``random.randrange``), so a seeded continuation
+    is reproducible, and without ``static_override`` every member runs on
+    the static envelope of the whole ladder, as in the JAX package.
+    Exclusive of ``use_gradient``.  ``min_gap`` (fused path only): the
+    inflated pillar-clearance floor passed to the fused optimizers, so every
+    accepted member keeps slack for the next period rescale."""
+    if use_fused and use_gradient:
+        raise ValueError("use_fused and use_gradient are exclusive")
     device = _device(device)
     if start_grating_collection is None:
         if start_grating is None or target_wavelength is None:
@@ -497,6 +505,15 @@ def vary_angle(start_grating=None, end_angle=None, lens_type=None,
                                         target_wavelength)
 
     assert change_each_step > 1 and similarity_each_step > 0
+
+    if use_fused and static_override is None:
+        # every member on one static config: the envelope of the ladder
+        pairs = _continuation_ladder(all_gratings, end_angle,
+                                     change_each_step)
+        tt = tuple(terms) if terms is not None else DEFAULT_FOM_TERMS
+        static_override = static_envelope(
+            all_gratings.grating_list[0], pairs, [t.wavelength for t in tt],
+            numG, dtype=cpx.complex_dtype(device, dtype))
 
     while True:
         if verbose:
@@ -528,16 +545,29 @@ def vary_angle(start_grating=None, end_angle=None, lens_type=None,
                       how_similar=similarity_each_step, numG=numG,
                       terms=terms, verbose=verbose, device=device,
                       dtype=dtype)
-        if use_gradient:
-            grating_new = optimize_gradient(grating_new_start,
-                                            steps=gradient_steps, **common)
+        if use_fused:
+            seeds = ([int(rng.integers(2 ** 31)) for _ in range(2)]
+                     if rng is not None
+                     else [random.randrange(2 ** 31) for _ in range(2)])
+            fused = dict(common, static_override=static_override,
+                         min_gap=min_gap)
+            grating_new = optimize_fused(grating_new_start, seed=seeds[0],
+                                         **fused)
+            grating_new = optimize2_fused(grating_new,
+                                          attempts=optimize2_attempts,
+                                          seed=seeds[1], **fused)
         else:
-            grating_new = optimize(grating_new_start, rng=rng,
-                                   static_override=static_override, **common)
-        grating_new = optimize2(
-            grating_new, attempts=optimize2_attempts, rng=rng,
-            static_override=None if use_gradient else static_override,
-            **common)
+            if use_gradient:
+                grating_new = optimize_gradient(
+                    grating_new_start, steps=gradient_steps, **common)
+            else:
+                grating_new = optimize(grating_new_start, rng=rng,
+                                       static_override=static_override,
+                                       **common)
+            grating_new = optimize2(
+                grating_new, attempts=optimize2_attempts, rng=rng,
+                static_override=None if use_gradient else static_override,
+                **common)
 
         all_gratings.add_one(grating_new)
 

@@ -54,8 +54,12 @@ def eye(n: int, like: torch.Tensor) -> torch.Tensor:
 
 def scalar(z, like: torch.Tensor) -> torch.Tensor:
     """A python number (or 0-d tensor) as a 0-d complex tensor in
-    ``like``'s complex dtype and device."""
-    return torch.as_tensor(z, dtype=to_complex(like.dtype)).to(like.device)
+    ``like``'s complex dtype and device; a number is filled in on the
+    device (no upload, so no host sync on CUDA)."""
+    cdt = to_complex(like.dtype)
+    if torch.is_tensor(z):
+        return z.to(device=like.device, dtype=cdt)
+    return torch.full((), complex(z), dtype=cdt, device=like.device)
 
 
 def csqrt_posim(c: torch.Tensor) -> torch.Tensor:

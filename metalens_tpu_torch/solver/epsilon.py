@@ -15,6 +15,8 @@ set given as index tensors) and gathered into the Toeplitz layout.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -88,17 +90,33 @@ def dense_difference_grid(Dx: int, Dy: int):
     return DMX.ravel().astype(np.float64), DMY.ravel().astype(np.float64)
 
 
+@functools.lru_cache(maxsize=8)
+def dense_grid_tensors(Dx: int, Dy: int, dtype: torch.dtype,
+                       device: torch.device):
+    """:func:`dense_difference_grid` and its zero-difference mask as
+    tensors, made once per dtype and device (callers must not write to
+    them)."""
+    DMX, DMY = dense_difference_grid(Dx, Dy)
+    kw = dict(dtype=dtype, device=device)
+    return (torch.as_tensor(DMX, **kw), torch.as_tensor(DMY, **kw),
+            torch.as_tensor((DMX == 0) & (DMY == 0), **kw))
+
+
 def traced_gather_idx(mx, my, Dx: int, Dy: int):
     """(N, N) flat indices into :func:`dense_difference_grid` for the
     integer order tensors mx, my (N,); raises if a difference falls
-    outside the grid bounds."""
+    outside the grid bounds (on CUDA the check is a device-side assert, so
+    that it reads nothing back to the host)."""
     dmx = mx[:, None] - mx[None, :]
     dmy = my[:, None] - my[None, :]
-    max_x, max_y = int(dmx.abs().max()), int(dmy.abs().max())
-    if max_x > Dx or max_y > Dy:
-        raise ValueError(
-            f"order differences (|dmx| <= {max_x}, |dmy| <= {max_y}) exceed "
-            f"the dense grid bounds (Dx={Dx}, Dy={Dy})")
+    if dmx.is_cuda:
+        torch._assert_async((dmx.abs().max() <= Dx) & (dmy.abs().max() <= Dy))
+    else:
+        max_x, max_y = int(dmx.abs().max()), int(dmy.abs().max())
+        if max_x > Dx or max_y > Dy:
+            raise ValueError(
+                f"order differences (|dmx| <= {max_x}, |dmy| <= {max_y}) "
+                f"exceed the dense grid bounds (Dx={Dx}, Dy={Dy})")
     return (dmx + Dx) * (2 * Dy + 1) + (dmy + Dy)
 
 
@@ -110,12 +128,11 @@ def ellipse_structure_toeplitz_traced(mx, my, Dx: int, Dy: int,
     difference grid, gathered by :func:`traced_gather_idx`.  Same values
     as the static path."""
     area = grating_period * lateral_period
-    DMX, DMY = dense_difference_grid(Dx, Dy)
-    kw = dict(dtype=xyrra.dtype, device=xyrra.device)
-    gx = torch.as_tensor(DMX, **kw) * (TWO_PI / grating_period)
-    gy = torch.as_tensor(DMY, **kw) * (TWO_PI / lateral_period)
+    DMX, DMY, zero_flat = dense_grid_tensors(Dx, Dy, xyrra.dtype,
+                                             xyrra.device)
+    gx = DMX * (TWO_PI / grating_period)
+    gy = DMY * (TWO_PI / lateral_period)
     S_flat = ellipse_shape_sum(gx, gy, xyrra, area, small_arg_only)
-    zero_flat = torch.as_tensor((DMX == 0) & (DMY == 0), **kw)
     idx = traced_gather_idx(mx.to(xyrra.device), my.to(xyrra.device), Dx, Dy)
     return S_flat[..., idx], zero_flat[idx]
 

@@ -50,7 +50,6 @@ def _raster_and_basis(orders_key, R: int):
     return _raster_basis_for(dmx_u, dmy_u, R) + (gather,)
 
 
-@functools.lru_cache(maxsize=4)
 def _dense_raster_and_basis(Dx: int, Dy: int, R: int):
     """As :func:`_raster_and_basis` over the dense difference grid."""
     dmx_u, dmy_u = dense_difference_grid(Dx, Dy)
@@ -118,13 +117,25 @@ def normal_projector_toeplitz(orders, grating_period, lateral_period, xyrra,
                              grating_period, lateral_period)
 
 
+@functools.lru_cache(maxsize=4)
+def _dense_raster_and_basis_tensors(Dx: int, Dy: int, R: int,
+                                    dtype: torch.dtype,
+                                    device: torch.device):
+    """:func:`_dense_raster_and_basis` as tensors, made once per dtype and
+    device, so that a FOM batch uploads nothing (callers must not write to
+    them)."""
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device)
+                 for a in _dense_raster_and_basis(Dx, Dy, R))
+
+
 def normal_projector_toeplitz_traced(mx, my, Dx: int, Dy: int,
                                      grating_period, lateral_period, xyrra,
                                      R: int = 64):
     """:func:`normal_projector_toeplitz` with the order set given as integer
     tensors mx, my (bound |dmx| <= Dx, |dmy| <= Dy): projects onto the
     dense difference grid and gathers."""
-    fx, fy, dft_re, dft_im = _dense_raster_and_basis(Dx, Dy, R)
+    fx, fy, dft_re, dft_im = _dense_raster_and_basis_tensors(
+        Dx, Dy, R, xyrra.dtype, xyrra.device)
     idx = traced_gather_idx(mx.to(xyrra.device), my.to(xyrra.device), Dx, Dy)
     return _projector_blocks(xyrra, fx, fy, dft_re, dft_im, idx,
                              grating_period, lateral_period)

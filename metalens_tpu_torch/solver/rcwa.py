@@ -22,6 +22,7 @@ S4 exactly (see :mod:`.basis`).
 from __future__ import annotations
 
 import math
+import numbers
 from typing import NamedTuple
 
 import numpy as np
@@ -340,8 +341,12 @@ def build_layer_eps(orders, grating_period, lateral_period, xyrra,
 
 
 def _batch_col(x, B: int, like: torch.Tensor):
-    """A number or a (B,) tensor as a (B, 1) real column."""
-    x = torch.as_tensor(x, dtype=like.dtype).to(like.device)
+    """A number or a (B,) tensor as a (B, 1) real column (a number is
+    filled in on the device: no upload, so no host sync on CUDA)."""
+    if isinstance(x, numbers.Real):
+        x = torch.full((1,), float(x), dtype=like.dtype, device=like.device)
+    else:
+        x = torch.as_tensor(x, dtype=like.dtype).to(like.device)
     return x.reshape(-1, 1).expand(B, 1)
 
 

@@ -25,7 +25,9 @@ package's VJP (``pallas_taylor.py:259-270``) replays ``xla_factors``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+import numbers
 
 import torch
 
@@ -74,13 +76,23 @@ def coeff_table(t, terms: int, batch: int, device,
     """(batch, 3, terms+1) table of the three series' coefficients with
     t^{2k} folded in (float32, what the chunk kernel reads, unless ``dtype``
     says otherwise); ``t`` is a number or a (batch,) tensor."""
-    t64 = torch.as_tensor(t, dtype=torch.float64).to(device)
+    if isinstance(t, numbers.Real):  # filled in on the device: no upload
+        t64 = torch.full((1,), float(t), dtype=torch.float64, device=device)
+    else:
+        t64 = torch.as_tensor(t, dtype=torch.float64).to(device)
     t64 = t64.reshape(-1, 1).expand(batch, 1)
     tp = t64 ** (2 * torch.arange(terms + 1, device=device,
                                   dtype=torch.float64))
-    coeffs = torch.tensor(series_coefficients(terms), dtype=torch.float64,
-                          device=device)
+    coeffs = _series_table(terms, torch.device(device))
     return (coeffs[None] * tp[:, None, :]).to(dtype).contiguous()
+
+
+@functools.lru_cache(maxsize=16)
+def _series_table(terms: int, device: torch.device) -> torch.Tensor:
+    """:func:`series_coefficients` as a float64 (3, terms+1) tensor, made
+    once per device (callers must not write to it)."""
+    return torch.tensor(series_coefficients(terms), dtype=torch.float64,
+                        device=device)
 
 
 def shared_power_polys(Y: torch.Tensor, I: torch.Tensor, coeff_lists):

@@ -319,3 +319,44 @@ def test_farfield_on_cuda_against_cpu(cuda_device):
     assert bool((torch.isfinite(P) == fin).all())
     assert (P - Pr)[fin].abs().max() <= 1e-5 * Pr[fin].max()
     assert abs(got[1] - want[1]) <= 1e-5 * abs(want[1])
+
+
+@pytest.mark.cuda
+def test_fused_member_on_cuda_against_cpu(cuda_device):
+    """optimize_fused then optimize2_fused on the card in complex64 at a
+    small numG: float32 state, a result that validates, a FOM that did not
+    drop, the same launches per FOM batch on each, and the card's result
+    scored within 2e-3 of CPU complex128."""
+    import importlib
+    from metalens_tpu_torch import Grating, validate
+    from metalens_tpu_torch.solver.fom import FomTerm
+    fused = importlib.import_module("metalens_tpu_torch.optimize_fused")
+    g = Grating(lateral_period=LY, grating_period=LX, cyl_height=H,
+                xyrra_list_in_nm_deg=[[-215, 2, 144, 105, 0],
+                                      [196, -8, 100, 102, 6]])
+    terms = [FomTerm(LAM, 1.0, -1, True), FomTerm(450 * NM, 0.5, 0, True)]
+    kw = dict(numG=15, terms=terms, similar_to=g.xyrra_list,
+              how_similar=0.02, verbose=False)
+    returned = []
+    orig = fused._rp_run
+
+    def rp_spy(*config):
+        run = orig(*config)
+
+        def rec(*args):
+            returned.append(run(*args))
+            return returned[-1]
+        return rec
+    fused._rp_run = rp_spy
+    try:
+        out = fused.optimize_fused(g, LAM, seed=3, **kw)
+        out = fused.optimize2_fused(out, LAM, attempts=5, seed=4, **kw)
+    finally:
+        fused._rp_run = orig
+    x, fom = returned[-1][:2]
+    assert x.is_cuda and x.dtype == fom.dtype == torch.float32
+    assert validate(out, similar_to=g.xyrra_list, how_similar=0.02)
+    f0 = g.fom(LAM, numG=15, terms=terms)
+    f1 = out.fom(LAM, numG=15, terms=terms)
+    assert f1 >= f0 and abs(f1 - fom.item()) <= 1e-5
+    assert abs(f1 - out.fom(LAM, numG=15, terms=terms, device="cpu")) <= 2e-3

@@ -6,13 +6,14 @@ import sys
 
 def test_port_imports_no_jax():
     code = (
-        "import sys\n"
+        "import importlib, sys\n"
         "import metalens_tpu_torch, metalens_tpu_torch.engine, "
         "metalens_tpu_torch.convert, metalens_tpu_torch.grating, "
         "metalens_tpu_torch.optimize, metalens_tpu_torch.characterize, "
         "metalens_tpu_torch.hexgrid, metalens_tpu_torch.serialization, "
         "metalens_tpu_torch.assembly, metalens_tpu_torch.nearfield, "
         "metalens_tpu_torch.farfield\n"
+        "importlib.import_module('metalens_tpu_torch.optimize_fused')\n"
         "from metalens_tpu_torch.solver import basis, cpx, epsilon, fff, "
         "fields, fom, inv, orders, rcwa, special, taylor\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "

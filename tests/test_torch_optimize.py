@@ -83,11 +83,22 @@ def _assert_same_xyrra(got, want):
     assert np.abs(got[..., 4] - want[..., 4]).max() <= 1e-12        # radians
 
 
+def _score_by_value_and_grad(g, target_wavelength=None, numG=50,
+                             terms=None):
+    """The JAX FOM of g through the engine's value-and-grad program, which
+    the gradient runs compile anyway, in place of a second (single-cell)
+    FOM program for optimize_gradient's start score."""
+    return float(jengine.fom_value_and_grad(g, target_wavelength, numG,
+                                            terms)(g.xyrra_list)[0])
+
+
 @pytest.fixture(scope="module")
 def jax_runs():
     """The JAX package's seeded optimizer runs, sharing its compiled FOM
     programs: optimize under a 3% trust region, optimize2 with 40
-    attempts, optimize_gradient's iterates, one vary_angle member."""
+    attempts, optimize_gradient's iterates, one vary_angle member.  The
+    gradient runs score their start through the value-and-grad program
+    (:func:`_score_by_value_and_grad`)."""
     jg = _jax_grating()
     terms = [JFomTerm(*t) for t in TERMS]
     out = {"start": jg}
@@ -99,6 +110,7 @@ def jax_runs():
         rng=np.random.default_rng(1))
     iterates = []
     with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jopt, "fom_of_grating", _score_by_value_and_grad)
         _recording_vg(jopt, iterates, mp)
         out["gradient"] = jopt.optimize_gradient(
             jg, LAM, steps=GRADIENT_STEPS, numG=NUMG, terms=terms,
@@ -108,10 +120,12 @@ def jax_runs():
     out["vary"] = jopt.vary_angle(
         jg, out["vary_end"], "cyl", LAM, numG=NUMG, terms=terms,
         optimize2_attempts=20, verbose=False, rng=np.random.default_rng(2))
-    out["vary_gradient"] = jopt.vary_angle(
-        jg, out["vary_end"], "cyl", LAM, numG=NUMG, terms=terms,
-        use_gradient=True, gradient_steps=3, optimize2_attempts=10,
-        verbose=False, rng=np.random.default_rng(4))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jopt, "fom_of_grating", _score_by_value_and_grad)
+        out["vary_gradient"] = jopt.vary_angle(
+            jg, out["vary_end"], "cyl", LAM, numG=NUMG, terms=terms,
+            use_gradient=True, gradient_steps=3, optimize2_attempts=10,
+            verbose=False, rng=np.random.default_rng(4))
     return out
 
 
@@ -374,7 +388,8 @@ def test_vary_angle_member_matches_jax(jax_runs, route):
 def test_entry_points_default_to_cuda(monkeypatch):
     """Called without device=, the design loop runs on CUDA: where torch has
     no CUDA device every entry point raises instead of running on the
-    CPU.  use_fused is not ported yet and says so."""
+    CPU, the fused continuation too; use_fused and use_gradient are
+    exclusive."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     tg = grating_from_reference(_jax_grating())
     assert _exported_optimize is optimize
@@ -386,10 +401,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
                                   verbose=False),
         lambda: vary_angle(tg, 0.9 * tg.get_angle_in_air(LAM), "cyl", LAM,
                            numG=NUMG, verbose=False),
+        lambda: vary_angle(tg, 0.9 * tg.get_angle_in_air(LAM), "cyl", LAM,
+                           numG=NUMG, verbose=False, use_fused=True),
     )
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="exclusive"):
         vary_angle(tg, 0.9 * tg.get_angle_in_air(LAM), "cyl", LAM,
-                   use_fused=True, device="cpu")
+                   use_fused=True, use_gradient=True, device="cpu")
