@@ -38,15 +38,27 @@ member again (identical), ``feasible_traced`` on the card against the
 host's float64 ``validate``, a two-member ``vary_angle(use_fused=True)``
 continuation with NS2's steps, and the kernels held to their plain versions
 on a screen and a walk batch; it counts launches against the schedule, host
-syncs per FOM batch and per round, and times and profiles a round.
+syncs per FOM batch and per round, and times and profiles a round.  Phase
+10 drives the sharded paths of ``metalens_tpu_torch.parallel`` through a
+one-rank NCCL process group (a file store, no network): the dry run of all
+six paths, then each at full width held to the unsharded port call on the
+same card -- the sharded FOM + gradient step at the bench cell (numG = 50,
+B = 64) against ``fom_value_and_grad`` cell by cell and CPU complex128, the
+characterize sweep over phase 7's four periods in one batch against phase
+7's databases, the stitch of phase 8b's lens against phase 8b's near field,
+``fft2_sharded`` against ``torch.fft.fft2`` and ``farfield_sharded``
+against ``farfield``, and the member design of phase 9's member against
+the member alone; it holds the kernels to their plain versions on the step's
+and the sweep's inputs, counts launches, times each path beside its twin in
+turns and profiles the step.
 
     python3 chip_smoke.py
 
 Every phase is fatal: a failed check exits nonzero.  The last two lines of
 standard output are a JSON object describing each kernel (launches in the
 counted runs of the main path at numG = 50 and numG = 100, of one
-``fom_value_and_grad`` call, of the characterize sweeps and of the fused
-member, summed and per path, with the inverse's per route; error against the plain version;
+``fom_value_and_grad`` call, of the characterize sweeps, of the fused
+member and of the sharded step, sweep and member, summed and per path, with the inverse's per route; error against the plain version;
 times and bound at the main path's bench size, and the same per size
 under ``sizes``) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits nonzero
@@ -685,6 +697,7 @@ def characterize_phase(dev, gd, results, path_launches, reset_counts,
     print(f"phase 7 pick_from_phase over 721 phases: {len(set(chosen))} "
           f"distinct members picked, every pick in range")
     print(f"phase 7 characterize: {time.perf_counter() - t7:.2f} s")
+    return gc
 
 
 def round_collection(lo_deg, hi_deg, n_members=3):
@@ -946,7 +959,7 @@ def lens_phase(dev, results, path_launches, reset_counts, launch_counts):
           f"{TOL_FARFIELD}; P as a share of its max)")
     require(max(far_err.values()) <= TOL_FARFIELD,
             f"8b far field vs CPU: {far_err}")
-    del out, far, P, Pr, Pc
+    del far, P, Pr, Pc
 
     # the kernels at the lens-characterize inputs: one periphery member
     # sweep (B = 25 directions) and one HexGridSet member sweep (B = 81)
@@ -961,6 +974,7 @@ def lens_phase(dev, results, path_launches, reset_counts, launch_counts):
     kernels_at_inputs(dev, results, inv_caps, tay_caps, "characterize lens",
                       "phase 8b")
     print(f"phase 8 lens check: {time.perf_counter() - t8:.2f} s")
+    return dict(lps=lps, lcs=lcs, hgs=hgs, d=d, pts=pts, out=out)
 
 
 def rgb_terms():
@@ -1274,6 +1288,369 @@ def fused_phase(dev, results, path_launches, reset_counts, launch_counts):
     profile(one_round, "fused dispatch of one round", rows=12,
             wall_ms=round_ms)
     print(f"phase 9 fused design loop: {time.perf_counter() - t9:.2f} s")
+
+
+def in_turns(label, twin, sharded, reps=1, warm=True):
+    """The unsharded twin and the sharded path timed in turns (twin,
+    sharded, sharded, twin), each by CUDA events and by the host clock
+    around work that ends in a synchronize; returns the mean (events ms,
+    host ms) per call of each."""
+    import torch
+    if warm:
+        twin()
+        sharded()
+    acc = {"twin": [], "sharded": []}
+    for name in ("twin", "sharded", "sharded", "twin"):
+        fn = twin if name == "twin" else sharded
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        acc[name].append((start.elapsed_time(end) / reps,
+                          (time.perf_counter() - t0) * 1e3 / reps))
+    out = {k: tuple(float(x) for x in np.mean(v, axis=0))
+           for k, v in acc.items()}
+    (te, th), (se, sh) = out["twin"], out["sharded"]
+    print(f"phase {label} in turns (twin, sharded, sharded, twin), ms per "
+          f"call by CUDA events / host clock: unsharded {te:.3f} / "
+          f"{th:.3f}, sharded {se:.3f} / {sh:.3f}; sharded - unsharded "
+          f"{sh - th:+.3f} ms of host time ({100 * (sh - th) / th:+.2f}%)")
+    return out
+
+
+def capture_kernels(run):
+    """The inputs of every inverse and Taylor call during run(), detached
+    (the kernels' raw wrappers refuse a gradient)."""
+    import torch
+    from metalens_tpu_torch.solver import inv, taylor
+    tay = []
+    inv_caps = capture(inv, "inv", lambda: tay.extend(
+        capture(taylor, "taylor_factors", run)))
+
+    def det(x):
+        return x.detach() if torch.is_tensor(x) else x
+    return ([det(A) for (A,) in inv_caps],
+            [tuple(det(x) for x in c) for c in tay])
+
+
+def parallel_phase(dev, results, path_launches, reset_counts, launch_counts,
+                   gd, gc7, lens):
+    """Phase 10: the sharded paths of metalens_tpu_torch.parallel at full
+    width through a one-rank NCCL process group on the card, each held to
+    the unsharded port call on the same card and timed beside it."""
+    import importlib
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from metalens_tpu_torch import parallel
+    from metalens_tpu_torch.engine import (_direction_grid, _fom_inputs,
+                                           characterize_grating,
+                                           fom_value_and_grad,
+                                           static_solve_config)
+    from metalens_tpu_torch.materials import resolve_indices
+    from metalens_tpu_torch.parallel import dryrun
+    from metalens_tpu_torch.parallel.mesh import Mesh
+    from metalens_tpu_torch.solver import inv, orders as ordmod
+    nf = importlib.import_module("metalens_tpu_torch.nearfield")
+    ff = importlib.import_module("metalens_tpu_torch.farfield")
+    fused = importlib.import_module("metalens_tpu_torch.optimize_fused")
+    t10 = time.perf_counter()
+    # the one-rank group bootstraps over loopback: the machine may have no
+    # other network interface
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel.init_distributed(f"file://{tmp}/store", 1, 0, device="cuda",
+                                  timeout=600)
+        try:
+            require(dist.get_backend() == "nccl",
+                    f"process group backend {dist.get_backend()}")
+            mesh = parallel.make_mesh()
+            # the same card without the group: the collectives are skipped
+            local = Mesh(0, 1, mesh.device)
+            print(f"phase 10 process group: backend {dist.get_backend()}, "
+                  f"world {dist.get_world_size()}, rank {mesh.rank}, device "
+                  f"{mesh.device}, NCCL {torch.cuda.nccl.version()}")
+            t0 = time.perf_counter()
+            dryrun.dryrun_multichip(1, device="cuda")
+            print(f"phase 10 dry run of the six paths at the dry run's "
+                  f"shapes on the card: {time.perf_counter() - t0:.2f} s")
+
+            # 10a: the sharded FOM + gradient step at the bench cell
+            numG, B = 50, 64
+            orders, n_s, n_t, _, tgt, inph, per_term = _fom_inputs(
+                gd, LAM, numG, None, torch.complex64)
+            eps_p, eps_g, lam, ux, ngs, cth, w = per_term
+            T = len(tgt)
+            rng = np.random.default_rng(10)
+            xy = np.stack([gd.xyrra_list + rng.normal(
+                scale=NM, size=gd.xyrra_list.shape) * [1, 1, 1, 1, 0]
+                for _ in range(B)])
+            args = (xy, np.full(B, LX), np.full(B, LY), H, np.array(eps_p),
+                    np.array(eps_g), np.array(lam), np.tile(ux, (B, 1)),
+                    np.array(ngs), np.tile(cth, (B, 1)), np.array(w))
+            step = parallel.sharded_fom_and_grad(mesh, orders, n_s, tgt,
+                                                 inph, taylor_terms=n_t)
+            want = {"cinv": T * (5 + int(math.log2(n_s))),
+                    "taylor": T * taylor_work(2 * numG, 1, n_t)[2],
+                    "taylor_chunks": T}
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            fom, grad = step(*args)
+            torch.cuda.synchronize()
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+            c = launch_counts()
+            label = f"sharded fom+grad numG={numG} B={B}"
+            path_launches[label] = c
+            results["cinv"]["route_launches_by_path"][label] = dict(
+                inv.route_launches)
+            print(f"phase 10a {label} ({T} terms, {n_s} slabs, {n_t} "
+                  f"Taylor terms): mean fom {fom.item():.7f}; launches {c} "
+                  f"(expected {want}: the forward's); peak device memory "
+                  f"{peak_gib:.3f} GiB")
+            require(c == want and all(v > 0 for v in c.values()),
+                    f"10a launches {c}, expected {want}")
+            require(fom.dtype == grad.dtype == torch.float32 and grad.is_cuda
+                    and grad.shape == (B, 2, 5)
+                    and bool(torch.isfinite(grad).all()),
+                    f"10a: {fom.dtype} {grad.dtype} {tuple(grad.shape)}")
+            vg = fom_value_and_grad(gd, LAM, numG)
+            t0 = time.perf_counter()
+            per = [vg(x) for x in xy]
+            torch.cuda.synchronize()
+            loop_ms = (time.perf_counter() - t0) * 1e3
+            f_ref = torch.stack([f for f, _ in per]).mean()
+            g_ref = torch.stack([g for _, g in per]) / B
+            d_fom = abs(fom.item() - f_ref.item()) / abs(f_ref.item())
+            d_gmax = ((grad - g_ref).abs().max() / g_ref.abs().max()).item()
+            d_grad = ((grad - g_ref).norm() / g_ref.norm()).item()
+            picks = [0, B // 3, 2 * B // 3, B - 1]
+            with cpu_threads(1):
+                vg_cpu = fom_value_and_grad(gd, LAM, numG, device="cpu")
+                g_cpu = [vg_cpu(xy[b])[1] for b in picks]
+            d_cpu = max(((grad[b].cpu().double() * B - g).norm()
+                         / g.norm()).item() for b, g in zip(picks, g_cpu))
+            print(f"phase 10a vs fom_value_and_grad on the card, cell by "
+                  f"cell ({B} calls, {loop_ms:.1f} ms): mean fom rel err "
+                  f"{d_fom:.3e}, gradient |dgrad|/|grad| {d_grad:.3e} (bound "
+                  f"2e-5; max err / max {d_gmax:.3e}); {len(picks)} cells' "
+                  f"gradients vs CPU complex128 "
+                  f"|dgrad|/|grad| {d_cpu:.3e} (bound {TOL_GRAD})")
+            require(d_fom <= 2e-5 and d_grad <= 2e-5,
+                    f"10a vs fom_value_and_grad: {d_fom}, {d_grad}")
+            require(d_cpu <= TOL_GRAD, f"10a vs CPU complex128: {d_cpu}")
+            inv_caps, tay_caps = capture_kernels(lambda: step(*args))
+            with torch.no_grad():
+                kernels_at_inputs(dev, results, inv_caps, tay_caps, label,
+                                  "phase 10a", numG=numG)
+            del inv_caps, tay_caps, per
+            step_local = parallel.sharded_fom_and_grad(
+                local, orders, n_s, tgt, inph, taylor_terms=n_t)
+            times = in_turns("10a (twin: the same step without the group)",
+                             lambda: step_local(*args), lambda: step(*args),
+                             reps=3)
+            profile(lambda: step(*args), f"10a {label}", rows=12,
+                    wall_ms=times["sharded"][1])
+
+            # 10b: the characterize sweep over phase 7's collection, four
+            # periods in one (direction x cell) batch
+            members = gc7.grating_list
+            sw = collection_sweep(gc7, 5, CHAR_NUMG)
+            uxg, uyg = _direction_grid(sw["ux_min"], sw["ux_max"],
+                                       sw["uy_min"], sw["uy_max"], 5)
+            cells = [(g, a, b) for a, b in zip(uxg, uyg) for g in members]
+            n_g, n_t7 = resolve_indices(members[0].n_glass,
+                                        members[0].n_tio2, LAM)
+            cargs = (np.stack([g.xyrra_list for g, _, _ in cells]),
+                     np.array([g.grating_period for g, _, _ in cells]),
+                     np.array([g.lateral_period for g, _, _ in cells]), H,
+                     complex(n_t7) ** 2, complex(n_g) ** 2, LAM,
+                     np.array([x[1] for x in cells]),
+                     np.array([x[2] for x in cells]))
+            ch = parallel.sharded_characterize_amps(mesh, CHAR_NUMG, None)
+            want = sweep_launches(members, [LAM])
+            reset_counts()
+            ampf, ampr = ch(*cargs)
+            torch.cuda.synchronize()
+            c = launch_counts()
+            label = f"sharded characterize numG={CHAR_NUMG} B={len(cells)}"
+            path_launches[label] = c
+            results["cinv"]["route_launches_by_path"][label] = dict(
+                inv.route_launches)
+            require(c == want and all(v > 0 for v in c.values()),
+                    f"10b launches {c}, expected {want}")
+            require(ampf.dtype == torch.complex64 and ampf.shape == (
+                len(cells), 2, 2 * CHAR_NUMG), f"10b ampf {ampf.dtype} "
+                f"{tuple(ampf.shape)}")
+            af, ar = ampf.cpu().numpy(), ampr.cpu().numpy()
+            worst, n_entries = 0.0, 0
+            for m, g in enumerate(members):
+                o = ordmod.select_orders(g.grating_period, g.lateral_period,
+                                         CHAR_NUMG)
+                for e in g.data:
+                    if e["wavelength_in_nm"] != 580.0:
+                        continue
+                    b = next(k for k in range(m, len(cells), len(members))
+                             if abs(cells[k][1] - e["ux"]) < 1e-12
+                             and abs(cells[k][2] - e["uy"]) < 1e-12)
+                    i = ordmod.order_index(o, e["ox"], e["oy"])
+                    p = 0 if e["x_or_y"] == "y" else 1
+                    got = (af[b, p, i], af[b, p, i + CHAR_NUMG],
+                           ar[b, p, i], ar[b, p, i + CHAR_NUMG])
+                    worst = max(worst, max(abs(x - e[k])
+                                           for x, k in zip(got, AMPS)))
+                    n_entries += 1
+            print(f"phase 10b {label} ({len(members)} periods "
+                  f"{[round(g.grating_period / NM, 1) for g in members]} nm, "
+                  f"{len(uxg)} directions): launches {c} (expected {want}); "
+                  f"{n_entries} database entries of phase 7 at 580 nm, max "
+                  f"|diff| {worst:.3e} (bound 2e-5)")
+            require(n_entries > 0 and worst <= 2e-5,
+                    f"10b vs phase 7's databases: {worst} over {n_entries}")
+            inv_caps, tay_caps = capture_kernels(lambda: ch(*cargs))
+            kernels_at_inputs(dev, results, inv_caps, tay_caps, label,
+                              "phase 10b")
+            del inv_caps, tay_caps
+            one = dict(ux_min=sw["ux_min"], ux_max=sw["ux_max"],
+                       uy_min=sw["uy_min"], uy_max=sw["uy_max"], u_steps=5,
+                       wavelength=LAM, numG=CHAR_NUMG)
+            in_turns("10b (twin: characterize_grating per member)",
+                     lambda: [characterize_grating(g, **one)
+                              for g in members], lambda: ch(*cargs))
+
+            # 10c: the stitch of phase 8b's lens, rows over the ranks
+            lps, lcs, hgs, d, pts, out8 = (lens[k] for k in (
+                "lps", "lcs", "hgs", "d", "pts", "out"))
+
+            def stitch_sharded():
+                return parallel.build_nearfield_sharded(
+                    mesh, 0.0, 0.0, -d, "x", LAM, lps, lcs, hgs, pts, pts,
+                    dipole_moment=1e-30)
+
+            def stitch():
+                return nf.build_nearfield(0.0, 0.0, -d, "x", LAM, lps, lcs,
+                                          hgs, pts, pts, dipole_moment=1e-30)
+            got = stitch_sharded()
+            n = len(pts)
+            nf_err = max(np.abs(f - r.cpu().numpy()).max()
+                         / r.abs().max().item()
+                         for f, r in zip(got[:4], out8[:4]))
+            p_err = abs(got[6] - out8[6]) / out8[6]
+            print(f"phase 10c build_nearfield_sharded {n} x {n}: fields "
+                  f"{got[0].dtype} on the host, max |diff| vs phase 8b's "
+                  f"build_nearfield {nf_err:.3e} of each field's max (bound "
+                  f"1e-6), power through the lens {got[6]:.6e} rel err "
+                  f"{p_err:.3e} (bound 1e-6)")
+            require(got[0].shape == (n, n) and nf_err <= 1e-6
+                    and p_err <= 1e-6, f"10c: {nf_err}, {p_err}")
+            in_turns("10c (twin: build_nearfield)", stitch, stitch_sharded)
+
+            # 10d: the distributed fft2 and the far field of 10c's fields
+            gen = torch.Generator(device=dev).manual_seed(10)
+            z = torch.view_as_complex(torch.randn(n, n, 2, generator=gen,
+                                                  device=dev))
+            fft2 = parallel.fft2_sharded(mesh)
+            f_err = ((fft2(z) - torch.fft.fft2(z)).abs().max()
+                     / torch.fft.fft2(z).abs().max()).item()
+            P, tot, *_ = parallel.farfield_sharded(mesh, *got[:4], pts, pts,
+                                                   LAM, got[7])
+            Pr, totr, *_ = ff.farfield(*got[:4], pts, pts, LAM, got[7])
+            fin = torch.isfinite(Pr)
+            require(bool((torch.isfinite(P) == fin).all()),
+                    "10d: finite bins differ from farfield's")
+            ff_err = ((P - Pr)[fin].abs().max() / Pr[fin].max()).item()
+            tot_err = abs(tot - totr) / totr
+            print(f"phase 10d fft2_sharded {n} x {n} complex64 vs "
+                  f"torch.fft.fft2: max err / max {f_err:.3e} (bound 1e-5); "
+                  f"farfield_sharded vs farfield: P {ff_err:.3e} of its max, "
+                  f"total_P {tot_err:.3e} (bound 1e-5)")
+            require(f_err <= 1e-5 and ff_err <= 1e-5 and tot_err <= 1e-5,
+                    f"10d: {f_err}, {ff_err}, {tot_err}")
+            in_turns("10d fft2 (twin: torch.fft.fft2)",
+                     lambda: torch.fft.fft2(z), lambda: fft2(z), reps=5)
+            in_turns("10d far field (twin: farfield)",
+                     lambda: ff.farfield(*out8[:4], pts, pts, LAM, got[7]),
+                     lambda: parallel.farfield_sharded(
+                         mesh, *out8[:4], pts, pts, LAM, got[7]), reps=3)
+            del got, P, Pr, z
+
+            # 10e: the member design, NS2's 5-pillar member on this rank
+            terms, nE = rgb_terms(), FUSED_PILLARS
+            g0 = seed_grating(FUSED_ANGLE_DEG, nE)
+            caps = dict(max_rounds_per_dispatch=8, max_dispatches=2,
+                        attempts=10)
+            seed = 1000
+            _, n_s, n_t, _ = static_solve_config(
+                g0, [t.wavelength for t in terms], NS2_DESIGN_NUMG,
+                torch.complex64)
+            per_batch = {"cinv": len(terms) * (5 + int(math.log2(n_s))),
+                         "taylor": len(terms) * taylor_work(
+                             2 * NS2_DESIGN_NUMG, 1, n_t)[2],
+                         "taylor_chunks": len(terms)}
+
+            def sharded_member():
+                return parallel.sharded_member_optimize(
+                    mesh, [g0], LAM, numG=NS2_DESIGN_NUMG, terms=terms,
+                    seeds=[seed], verbose=False, **caps)
+
+            def member_alone():
+                config, trust, cell, rdt = fused._member_inputs(
+                    g0, LAM, NS2_DESIGN_NUMG, terms, None, None, None, None,
+                    dev, None)
+                cd = fused._cd_run(*config, nE,
+                                   caps["max_rounds_per_dispatch"], 10)
+                draws = fused.TorchDraws(seed, dev, rdt)
+                x = torch.as_tensor(g0.xyrra_list, dtype=rdt, device=dev)
+                for _ in range(caps["max_dispatches"]):
+                    x, _, stalled, _ = cd(x, *trust, draws, *cell)
+                    if stalled:
+                        break
+                sc = np.empty_like(g0.xyrra_list)
+                sc[:, 0:4] = 1 * NM
+                sc[:, 4] = 0.1 * math.pi / 180
+                sc /= g0.xyrra_list.size
+                x, fom, _, _ = fused._rp_run(*config, nE, 10)(
+                    x, *trust, fused.TorchDraws(seed + 1, dev, rdt),
+                    caps["attempts"], torch.as_tensor(sc, dtype=rdt,
+                                                      device=dev), *cell)
+                g = g0.copy()
+                g.xyrra_list = x.cpu().numpy().astype(np.float64)
+                g.standardize()
+                return g, float(fom)
+            rec = {"batches": [], "cd": [], "rp": []}
+            reset_counts()
+            with fused_spies(fused, rec):
+                des, foms = sharded_member()
+            torch.cuda.synchronize()
+            c = launch_counts()
+            label = f"sharded member design numG={NS2_DESIGN_NUMG}"
+            path_launches[label] = c
+            results["cinv"]["route_launches_by_path"][label] = dict(
+                inv.route_launches)
+            batches = len(rec["batches"])
+            want = {k: v * batches for k, v in per_batch.items()}
+            g_alone, f_alone = member_alone()
+            same = (np.array_equal(des[0].xyrra_list, g_alone.xyrra_list)
+                    and foms[0] == f_alone)
+            print(f"phase 10e {label} (NS2's {nE}-pillar member, seed "
+                  f"{seed}, {caps}): fom {foms[0]:.6f} in {batches} FOM "
+                  f"batches (sizes {sorted(set(rec['batches']))}); launches "
+                  f"{c} (expected {want}); the member alone through _cd_run "
+                  f"/ _rp_run: fom {f_alone:.6f}, identical xyrra and fom: "
+                  f"{same}")
+            require(c == want and all(v > 0 for v in c.values()),
+                    f"10e launches {c}, expected {want}")
+            require(same, "10e: the sharded member differs from the member "
+                    "alone")
+            in_turns("10e (twin: the member alone)", member_alone,
+                     sharded_member, warm=False)
+        finally:
+            dist.destroy_process_group()
+    print(f"phase 10 sharded paths: {time.perf_counter() - t10:.2f} s")
 
 
 def main():
@@ -1863,14 +2240,19 @@ def main():
     print(f"phase 6 design loop: {time.perf_counter() - t6:.2f} s")
 
     # ---- phase 7: the amplitude databases at numG = 100 -----------------
-    characterize_phase(dev, gd, results, path_launches, reset_counts,
-                       launch_counts)
+    gc7 = characterize_phase(dev, gd, results, path_launches, reset_counts,
+                             launch_counts)
 
     # ---- phase 8: the lens check ----------------------------------------
-    lens_phase(dev, results, path_launches, reset_counts, launch_counts)
+    lens = lens_phase(dev, results, path_launches, reset_counts,
+                      launch_counts)
 
     # ---- phase 9: the fused design loop ----------------------------------
     fused_phase(dev, results, path_launches, reset_counts, launch_counts)
+
+    # ---- phase 10: the sharded paths through a NCCL process group -------
+    parallel_phase(dev, results, path_launches, reset_counts, launch_counts,
+                   gd, gc7, lens)
 
     # launches: the sum over the counted runs of each path
     kernels = [dict(name=name,

@@ -14,6 +14,8 @@ def test_port_imports_no_jax():
         "metalens_tpu_torch.assembly, metalens_tpu_torch.nearfield, "
         "metalens_tpu_torch.farfield\n"
         "importlib.import_module('metalens_tpu_torch.optimize_fused')\n"
+        "from metalens_tpu_torch.parallel import design, distributed, "
+        "dryrun, fft, mesh, nearfield, sweep\n"
         "from metalens_tpu_torch.solver import basis, cpx, epsilon, fff, "
         "fields, fom, inv, orders, rcwa, special, taylor\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
