@@ -263,12 +263,39 @@ def profile(fn, label, rows=10, wall_ms=None):
     idle = ("" if wall_ms is None else
             f"; against {wall_ms:.3f} ms of wall per call the device idles "
             f"{100 * (1 - total / wall_ms):.1f}%")
+    copies = {d: [e for e in events if f"Memcpy {d}" in e.key]
+              for d in ("HtoD", "DtoH")}
     print(f"profile {label}: self device time {total:.3f} ms in "
           f"{sum(e.count for e in events)} device operations, wall "
-          f"{wall:.3f} ms under the profiler{idle}")
+          f"{wall:.3f} ms under the profiler{idle}; copies "
+          + ", ".join(f"{d} {sum(e.count for e in v)} "
+                      f"({sum(dev_us(e) for e in v) / 1e3:.3f} ms)"
+                      for d, v in copies.items()))
     for e in sorted(events, key=dev_us, reverse=True)[:rows]:
         print(f"profile {label}:   {dev_us(e) / 1e3:9.3f} ms "
               f"{e.count:5d} calls  {e.key[:80]}")
+
+
+def sync_sites(fn):
+    """Host syncs during fn() by torch.cuda.set_sync_debug_mode, by the
+    site in the repo that caused each (torch's own frames apart)."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            path = os.path.relpath(w.filename, REPO)
+            key = ("(torch)" if path.startswith("..")
+                   else f"{path}:{w.lineno}")
+            sites[key] = sites.get(key, 0) + 1
+    return dict(sorted(sites.items(), key=lambda kv: -kv[1]))
 
 
 def profile_split(fn, label, wall_ms, rows=6):
@@ -1246,25 +1273,6 @@ def fused_phase(dev, results, path_launches, reset_counts, launch_counts):
                           numG=numG)
     del inv_caps, tay_caps
 
-    def sync_sites(fn):
-        """Host syncs during fn() by torch.cuda.set_sync_debug_mode, by the
-        site in the repo that caused each (torch's own frames apart)."""
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        sites = {}
-        for w in caught:
-            if "synchroniz" in str(w.message):
-                path = os.path.relpath(w.filename, REPO)
-                key = ("(torch)" if path.startswith("..")
-                       else f"{path}:{w.lineno}")
-                sites[key] = sites.get(key, 0) + 1
-        return dict(sorted(sites.items(), key=lambda kv: -kv[1]))
-
     x0 = torch.as_tensor(g0.xyrra_list, dtype=rdt, device=dev)
     draws = fused.TorchDraws(0, dev, rdt)
     run1, run3 = (fused._cd_run(*config, nE, r, 10) for r in (1, 3))
@@ -1290,11 +1298,12 @@ def fused_phase(dev, results, path_launches, reset_counts, launch_counts):
     print(f"phase 9 fused design loop: {time.perf_counter() - t9:.2f} s")
 
 
-def in_turns(label, twin, sharded, reps=1, warm=True):
+def in_turns(label, twin, sharded, reps=1, warm=True,
+             names=("unsharded", "sharded")):
     """The unsharded twin and the sharded path timed in turns (twin,
     sharded, sharded, twin), each by CUDA events and by the host clock
     around work that ends in a synchronize; returns the mean (events ms,
-    host ms) per call of each."""
+    host ms) per call of each.  ``names`` label the two in the line."""
     import torch
     if warm:
         twin()
@@ -1316,10 +1325,11 @@ def in_turns(label, twin, sharded, reps=1, warm=True):
     out = {k: tuple(float(x) for x in np.mean(v, axis=0))
            for k, v in acc.items()}
     (te, th), (se, sh) = out["twin"], out["sharded"]
-    print(f"phase {label} in turns (twin, sharded, sharded, twin), ms per "
-          f"call by CUDA events / host clock: unsharded {te:.3f} / "
-          f"{th:.3f}, sharded {se:.3f} / {sh:.3f}; sharded - unsharded "
-          f"{sh - th:+.3f} ms of host time ({100 * (sh - th) / th:+.2f}%)")
+    a, b = names
+    print(f"phase {label} in turns ({a}, {b}, {b}, {a}), ms per call by "
+          f"CUDA events / host clock: {a} {te:.3f} / {th:.3f}, {b} "
+          f"{se:.3f} / {sh:.3f}; {b} - {a} {sh - th:+.3f} ms of host time "
+          f"({100 * (sh - th) / th:+.2f}%)")
     return out
 
 
@@ -1455,6 +1465,27 @@ def parallel_phase(dev, results, path_launches, reset_counts, launch_counts,
                              reps=3)
             profile(lambda: step(*args), f"10a {label}", rows=12,
                     wall_ms=times["sharded"][1])
+            # a training loop keeps its tables on the card: the same step
+            # on device tensors, sliced there, equals the host arrays' step
+            dargs = tuple(torch.as_tensor(a, device=mesh.device)
+                          if isinstance(a, np.ndarray) else a for a in args)
+            fom_d, grad_d = step(*dargs)
+            d_tab = max(abs(fom_d.item() - fom.item()) / abs(fom.item()),
+                        ((grad_d - grad).abs().max()
+                         / grad.abs().max()).item())
+            print(f"phase 10a on device tables against host arrays: max "
+                  f"rel diff {d_tab:.3e} (bound 1e-6; identical: "
+                  f"{d_tab == 0})")
+            require(d_tab <= 1e-6, f"10a on device tables: {d_tab}")
+            dtimes = in_turns("10a inputs (host arrays against device "
+                              "tables)", lambda: step(*args),
+                              lambda: step(*dargs), reps=3,
+                              names=("host arrays", "device tables"))
+            profile(lambda: step(*dargs), f"10a {label} on device tables",
+                    rows=4, wall_ms=dtimes["sharded"][1])
+            print(f"phase 10a host syncs by site (set_sync_debug_mode), one "
+                  f"step on host arrays: {sync_sites(lambda: step(*args))}; "
+                  f"on device tables: {sync_sites(lambda: step(*dargs))}")
 
             # 10b: the characterize sweep over phase 7's collection, four
             # periods in one (direction x cell) batch

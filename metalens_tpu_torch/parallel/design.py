@@ -55,8 +55,7 @@ def sharded_member_optimize(mesh, gratings, target_wavelength=None,
                             numG=50, terms=None, seeds=None, attempts=200,
                             similar_to=None, how_similar=None,
                             max_rounds_per_dispatch=256, max_dispatches=32,
-                            rdtype=None, verbose=True, axis="cells", *,
-                            dtype=None):
+                            *, verbose=True, axis="cells", dtype=None):
     """Run ``optimize_fused`` + ``optimize2_fused`` on every member of
     ``gratings``, one member per rank of ``mesh``.  Every rank passes the
     same arguments.
@@ -69,8 +68,10 @@ def sharded_member_optimize(mesh, gratings, target_wavelength=None,
     ``max_dispatches`` times; a stalled rank waits.  Then it runs
     :func:`_rp_run` for ``attempts`` with draws seeded ``seeds[i] + 1``.
     Returns ``(optimized_gratings, foms)``, gathered on every rank; the
-    FOMs are the chains' own values.  ``rdtype`` is the JAX signature's
-    real dtype (``dtype``, the complex working dtype, wins)."""
+    FOMs are the chains' own values.  ``dtype`` is the complex working
+    dtype (the port's convention), in place of the JAX signature's real
+    ``rdtype``; the arguments after ``max_dispatches`` are keywords, so a
+    call in the JAX signature's positions fails rather than misreads."""
     M = len(gratings)
     if not 1 <= M <= mesh.size:
         raise ValueError(f"{M} members for {mesh.size} ranks")
@@ -78,8 +79,6 @@ def sharded_member_optimize(mesh, gratings, target_wavelength=None,
         assert validate(g, print_details=True,
                         similar_to=None if similar_to is None
                         else similar_to[i], how_similar=how_similar)
-    if dtype is None and rdtype is not None:
-        dtype = cpx.to_complex(rdtype)
     seeds = list(seeds) if seeds is not None else list(range(M))
     if len(seeds) != M:
         raise ValueError(f"{len(seeds)} seeds for {M} members")

@@ -109,15 +109,10 @@ def replicate_to_mesh(mesh, pytree):
 def host_slice(total: int, axis_size: int = None):
     """This process's contiguous [start, stop) range of a global batch of
     ``total`` items -- the reference's hand-split ``worker_number`` ranges
-    (``grating.py:1173-1184``) taken from the rank and the world size.
-    ``total`` must divide evenly over the processes."""
-    nproc = dist.get_world_size() if _initialized() else 1
-    rank = dist.get_rank() if _initialized() else 0
-    if total % nproc:
-        raise ValueError(f"{total} items do not divide over {nproc} "
-                         f"processes; pad the sweep")
-    per = total // nproc
-    return rank * per, (rank + 1) * per
+    (``grating.py:1173-1184``) taken from the rank and the world size: the
+    block :meth:`Mesh.block` gives this rank.  ``total`` must divide
+    evenly over the processes."""
+    return make_mesh(device="cpu").block(total)
 
 
 def multihost_barrier(name: str = "metalens_sync"):

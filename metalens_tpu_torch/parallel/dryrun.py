@@ -126,6 +126,16 @@ def characterize_members():
             for lx in (LX, LX2)]
 
 
+def characterize_shared_config(dtype):
+    """The characterize sweep in the JAX package's form: one order set and
+    one slab schedule for every cell, those ``characterize_grating`` takes
+    at the first member's period.  Returns (orders, n_slabs, taylor)."""
+    from ..engine import static_solve_config
+    orders, n_slabs, taylor, _ = static_solve_config(
+        characterize_members()[0], [LAM], CHAR_NUMG, dtype)
+    return orders, n_slabs, taylor
+
+
 def characterize_inputs(members):
     """The (direction x cell) batch of ``characterize_grating``'s direction
     grid over ``members``, direction-major (so every rank's block holds
@@ -196,15 +206,14 @@ def rank_work(mesh) -> dict:
     shapes; returns host numpy results (the same on every rank)."""
     from ..solver import cpx
     from . import (build_nearfield_sharded, farfield_sharded, fft2_sharded,
-                   host_slice, multihost_barrier, sharded_characterize_amps,
+                   multihost_barrier, sharded_characterize_amps,
                    sharded_fom_and_grad, sharded_member_optimize)
     out = {}
-    rdt = cpx.real_dtype(cpx.complex_dtype(mesh.device))
-    if host_slice(8 * mesh.size) != mesh.block(8 * mesh.size):
-        raise RuntimeError("host_slice disagrees with the mesh's block")
+    cdt = cpx.complex_dtype(mesh.device)
+    rdt = cpx.real_dtype(cdt)
 
     # the sharded training step: FOM + exact gradient, then an update
-    p = _tiny_problem(numG=9, B=max(mesh.size, 4), dtype=rdt)
+    p = _tiny_problem(numG=9, B=math.lcm(8, mesh.size), dtype=rdt)
     tgt, inph, args = sweep_inputs(p)
     step = sharded_fom_and_grad(mesh, p["orders"], p["n_slabs"], tgt, inph,
                                 taylor_terms=p["taylor"])
@@ -218,10 +227,18 @@ def rank_work(mesh) -> dict:
     if not (np.isfinite(out["sweep_fom"]) and np.isfinite(grad).all()):
         raise RuntimeError("sharded FOM or gradient not finite")
 
-    # the characterize sweep, two periods in one batch
+    # the characterize sweep, two periods in one batch: each on its own
+    # order set (numG), then on one shared set (the JAX package's form)
+    cin = characterize_inputs(characterize_members())
     ch = sharded_characterize_amps(mesh, CHAR_NUMG, None)
-    ampf, ampr = ch(*characterize_inputs(characterize_members()))
+    ampf, ampr = ch(*cin)
     out.update(char_ampf=ampf.cpu().numpy(), char_ampr=ampr.cpu().numpy())
+    orders, n_slabs, taylor = characterize_shared_config(cdt)
+    ch = sharded_characterize_amps(mesh, orders, n_slabs,
+                                   taylor_terms=taylor)
+    ampf, ampr = ch(*cin)
+    out.update(char_shared_ampf=ampf.cpu().numpy(),
+               char_shared_ampr=ampr.cpu().numpy())
 
     # the near-field stitch, the aperture rows over the ranks
     lps, lcs, hgs, pts = tiny_lens(mesh.device)
@@ -263,7 +280,8 @@ def rank_work(mesh) -> dict:
 def _summary(n, out):
     return (f"dryrun_multichip({n}): sharded train step fom="
             f"{out['sweep_fom']:.6f} -> {out['sweep_fom2']:.6f}; sharded "
-            f"characterize ampf{tuple(out['char_ampf'].shape)}; sharded "
+            f"characterize ampf{tuple(out['char_ampf'].shape)} on own and "
+            f"shared order sets; sharded "
             f"stitch P_lens={out['nf_power']:.3e}; distributed FFT parity "
             f"ok; farfield total_P={out['ff_total']:.3e}; sharded fused "
             f"design {len(out['design_foms'])} members foms[min,max]="
@@ -380,16 +398,20 @@ def differences(out, ref) -> dict:
     return diff
 
 
-if __name__ == "__main__":
+def main(argv=None):
+    """The command line: ``--device`` is ``cuda`` unless asked otherwise,
+    as for :func:`dryrun_multichip`."""
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ranks", type=int, default=2)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; one process per card) or cpu "
+                    "(gloo ranks spawned here)")
     ap.add_argument("--out", help="save rank 0's results to this npz")
     ap.add_argument("--against", help="an earlier run's npz (e.g. one "
                     "rank's): fail if a result differs by more than 1e-4 "
                     "of its largest entry")
-    a = ap.parse_args()
+    a = ap.parse_args(argv)
     if "WORLD_SIZE" in os.environ:          # ranks started by a launcher
         from .distributed import init_distributed
         init_distributed("env://", device=a.device, timeout=600)
@@ -407,3 +429,7 @@ if __name__ == "__main__":
                                  "reference run")
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

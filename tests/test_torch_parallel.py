@@ -54,7 +54,7 @@ def one():
 
 @pytest.fixture(scope="module")
 def sweep():
-    p = dryrun._tiny_problem(numG=9, B=4)
+    p = dryrun._tiny_problem(numG=9, B=8)
     return p, dryrun.sweep_inputs(p)
 
 
@@ -83,7 +83,7 @@ def test_sweep_matches_one_rank(world, one, sweep):
     step = parallel.sharded_fom_and_grad(one, p["orders"], p["n_slabs"],
                                          tgt, inph, taylor_terms=p["taylor"])
     fom, grad = step(*args)
-    assert grad.dtype == torch.float64 and grad.shape == (4, 2, 5)
+    assert grad.dtype == torch.float64 and grad.shape == (8, 2, 5)
     assert abs(world["sweep_fom"] - fom.item()) <= 1e-12 * abs(fom.item())
     assert _rel(world["sweep_grad"], grad.numpy()) <= 1e-12
     g = world["sweep_grad"]
@@ -91,6 +91,22 @@ def test_sweep_matches_one_rank(world, one, sweep):
     fom2, _ = step(update, *args[1:])
     assert abs(world["sweep_fom2"] - fom2.item()) <= 1e-12 * abs(fom2.item())
     assert world["sweep_fom2"] > world["sweep_fom"]
+
+
+def test_sweep_takes_device_tables(one, sweep):
+    """The inputs as tensors (a loop's device tables) give the arrays'
+    results; a table changed in place is read again."""
+    p, (tgt, inph, args) = sweep
+    step = parallel.sharded_fom_and_grad(one, p["orders"], p["n_slabs"],
+                                         tgt, inph, taylor_terms=p["taylor"])
+    targs = [torch.tensor(a) if isinstance(a, np.ndarray) else a
+             for a in args]
+    for a, b in zip(step(*args), step(*targs)):
+        assert torch.equal(a, b)
+    targs[1][:] = targs[1].flip(0)            # swap the two periods
+    flipped = (args[0], args[1][::-1].copy()) + args[2:]
+    for a, b in zip(step(*flipped), step(*targs)):
+        assert torch.equal(a, b)
 
 
 def test_sweep_matches_fom_value_and_grad(one):
@@ -131,7 +147,16 @@ def test_sweep_matches_jax(world, sweep):
     assert _rel(world["sweep_grad"], np.asarray(grad)) <= 1e-10
 
 
-def test_characterize_matches_characterize_grating(world):
+@pytest.fixture(scope="module")
+def char_data():
+    """``characterize_grating`` of each of the dry run's two members."""
+    return [characterize_grating(g, wavelength=dryrun.LAM,
+                                 numG=dryrun.CHAR_NUMG, device="cpu",
+                                 **dryrun.CHAR_DIRECTIONS)
+            for g in dryrun.characterize_members()]
+
+
+def test_characterize_matches_characterize_grating(world, char_data):
     """Two periods in one batch, each on its own order set."""
     members = dryrun.characterize_members()
     ampf, ampr = world["char_ampf"], world["char_ampr"]
@@ -141,9 +166,7 @@ def test_characterize_matches_characterize_grating(world):
     assert not np.array_equal(*sets)
     _, _, _, _, _, _, _, ux, uy = dryrun.characterize_inputs(members)
     n_checked = 0
-    for m, (g, orders) in enumerate(zip(members, sets)):
-        data = characterize_grating(g, wavelength=dryrun.LAM, numG=numG,
-                                    device="cpu", **dryrun.CHAR_DIRECTIONS)
+    for m, (data, orders) in enumerate(zip(char_data, sets)):
         for e in data:
             b = next(b for b in range(m, len(ux), 2)
                      if ux[b] == e["ux"] and uy[b] == e["uy"])
@@ -155,6 +178,35 @@ def test_characterize_matches_characterize_grating(world):
             assert np.abs(np.subtract(got, want)).max() <= 1e-12
             n_checked += 1
     assert n_checked > 50
+
+
+def test_characterize_on_shared_orders(world, one, char_data):
+    """The JAX package's form: one order set and slab schedule for both
+    periods.  The world against one rank on every cell, and the first
+    period's cells against ``characterize_grating`` there."""
+    members = dryrun.characterize_members()
+    orders, n_slabs, taylor = dryrun.characterize_shared_config(
+        torch.complex128)
+    cin = dryrun.characterize_inputs(members)
+    ampf, ampr = parallel.sharded_characterize_amps(
+        one, orders, n_slabs, taylor_terms=taylor)(*cin)
+    assert ampf.shape == (len(cin[0]), 2, 2 * dryrun.CHAR_NUMG)
+    assert _rel(world["char_shared_ampf"], ampf.numpy()) <= 1e-12
+    assert _rel(world["char_shared_ampr"], ampr.numpy()) <= 1e-12
+    assert not np.array_equal(world["char_shared_ampf"][1::2],
+                              world["char_ampf"][1::2])
+    ux, uy, N = cin[7], cin[8], len(orders)
+    for e in char_data[0]:
+        b = next(b for b in range(0, len(ux), 2)
+                 if ux[b] == e["ux"] and uy[b] == e["uy"])
+        i = ordmod.order_index(orders, e["ox"], e["oy"])
+        p = 0 if e["x_or_y"] == "y" else 1
+        got = (world["char_shared_ampf"][b, p, i],
+               world["char_shared_ampf"][b, p, i + N],
+               world["char_shared_ampr"][b, p, i],
+               world["char_shared_ampr"][b, p, i + N])
+        want = (e["ampfy"], e["ampfx"], e["ampry"], e["amprx"])
+        assert np.abs(np.subtract(got, want)).max() <= 1e-12
 
 
 @pytest.fixture(scope="module")
@@ -275,3 +327,5 @@ def test_dryrun_refuses_cuda_without_a_card(monkeypatch):
         dryrun.dryrun_multichip(1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         parallel.make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["--ranks", "1"])           # the command line's default
