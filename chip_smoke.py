@@ -50,7 +50,20 @@ characterize sweep over phase 7's four periods in one batch against phase
 against ``farfield``, and the member design of phase 9's member against
 the member alone; it holds the kernels to their plain versions on the step's
 and the sweep's inputs, counts launches, times each path beside its twin in
-turns and profiles the step.
+turns and profiles the step.  Phase 11 holds the cell solve to independent
+physics and drives the rest of the port end to end: 11a, in complex64 on the
+card at the bench cell's width (numG = 50) and through the port in
+complex128 on the CPU, a uniform slab against the transfer-matrix method and
+lamellar gratings against the independent 1D RCWA (the numpy oracles of
+``tests/``), Lorentz reciprocity and energy of lossless and absorbing
+pillars with NV off and on, and 64 random cells against the port's eigenmode
+reference, with launches against the schedule and the kernels held to their
+plain versions on these inputs; 11b, the native exporter built from
+``native/fastexport.cpp``, phase 8b's lens written as DXF, SVG and GDSII
+(pillars/s), the native files against the Python writers byte for byte on
+its first and last 20,000 pillars and the GDSII read back; 11c, the port's
+collimator demo (``metalens_tpu_torch.examples.collimator_demo --rgb``) in a
+subprocess, its printed lines parsed and checked.
 
     python3 chip_smoke.py
 
@@ -58,14 +71,15 @@ Every phase is fatal: a failed check exits nonzero.  The last two lines of
 standard output are a JSON object describing each kernel (launches in the
 counted runs of the main path at numG = 50 and numG = 100, of one
 ``fom_value_and_grad`` call, of the characterize sweeps, of the fused
-member and of the sharded step, sweep and member, summed and per path, with the inverse's per route; error against the plain version;
-times and bound at the main path's bench size, and the same per size
-under ``sizes``) and
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits nonzero
+member, of the sharded step, sweep and member and of the physics checks,
+summed and per path, with the inverse's per route; error against the plain
+version; times and bound at the main path's bench size, and the same per
+size under ``sizes``) and ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits nonzero
 before printing any result.  Imports nothing of JAX.
 """
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -118,6 +132,25 @@ FUSED_PILLARS, FUSED_ANGLE_DEG, FUSED_ATTEMPTS = 5, 19.7, 40
 TOL_FUSED_FOM = 1e-5      # the loop's returned FOM vs Grating.fom on the card
 PEAK_F32 = 67e12          # flop/s, f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
+# phase 11a: the physics checks at the bench cell's width; complex64 on the
+# card within bench.py's accuracy guard, complex128 on the CPU within the
+# reference tests' own bounds (tests/test_rcwa_fresnel.py and
+# tests/test_lamellar_independent.py, tests/test_reciprocity.py,
+# tests/test_lossy_and_random.py)
+PHYS_NUMG = 50
+LAMELLAR_M = 24           # the lamellar order line: 2 M + 1 = 49 orders
+LAMELLAR = ((25.0, 0.45, 5.6257), (0.001, 0.6, 4.0),
+            (40.0, 0.3, 5.6257 + 0.05j))   # (deg, fill, eps of the fill)
+TMM_THETAS = (0.001, math.radians(35.0))
+RECIP_U = (0.31, 0.12)
+EIG_CELLS, EIG_CPU_CELLS = 64, 8
+TOL_PHYS = TOL_GUARD
+PHYS_TOL64 = {"TMM": 1e-10, "lamellar": 5e-5, "reciprocity": 1e-8,
+              "energy": 1e-8, "eigenmode": 1e-6}
+# phase 11b: the native files against the Python writers on this many of the
+# lens's first and last pillars; phase 11c: the demo subprocess's time limit
+EXPORT_CHECK = 20000
+DEMO_TIMEOUT_S = 700
 
 
 def require(ok, what):
@@ -290,7 +323,9 @@ def sync_sites(fn):
             torch.cuda.set_sync_debug_mode(0)
     sites = {}
     for w in caught:
-        if "synchroniz" in str(w.message):
+        # torch's notice that the debug mode is a prototype is not a sync
+        if ("synchroniz" in str(w.message)
+                and "prototype" not in str(w.message)):
             path = os.path.relpath(w.filename, REPO)
             key = ("(torch)" if path.startswith("..")
                    else f"{path}:{w.lineno}")
@@ -1001,7 +1036,8 @@ def lens_phase(dev, results, path_launches, reset_counts, launch_counts):
     kernels_at_inputs(dev, results, inv_caps, tay_caps, "characterize lens",
                       "phase 8b")
     print(f"phase 8 lens check: {time.perf_counter() - t8:.2f} s")
-    return dict(lps=lps, lcs=lcs, hgs=hgs, d=d, pts=pts, out=out)
+    return dict(lps=lps, lcs=lcs, hgs=hgs, d=d, pts=pts, out=out,
+                xyrra=xyrra)
 
 
 def rgb_terms():
@@ -1684,6 +1720,400 @@ def parallel_phase(dev, results, path_launches, reset_counts, launch_counts,
     print(f"phase 10 sharded paths: {time.perf_counter() - t10:.2f} s")
 
 
+
+# ---- phase 11: the physics checks, the native export and the demo --------
+
+def _load_oracle(name):
+    """A numpy oracle of the tests (tests/<name>.py), loaded by path: it
+    imports nothing of JAX or of the repo's packages."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, "tests", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _phys_schedule(orders, L, Ly, h, eps_max, dtype, terms64):
+    """(n_slabs, taylor_terms): complex64 takes the production float32
+    schedule (rcwa.slab_schedule), complex128 the reference tests' pairing
+    (default_n_slabs over q2_upper_bound, with their series length)."""
+    import torch
+    from metalens_tpu_torch.solver import rcwa
+    k0h = 2 * np.pi * h / LAM
+    if dtype == torch.complex64:
+        return rcwa.slab_schedule(k0h, orders, L, Ly, LAM, eps_max,
+                                  dtype=torch.float32)
+    q2 = rcwa.q2_upper_bound(orders, L, Ly, LAM, eps_max)
+    return rcwa.default_n_slabs(k0h, q2), terms64
+
+
+def eig_cells(B, seed=11):
+    """B random two-pillar cells (tests/test_lossy_and_random.py's draw:
+    pillars near x = -+Lx/3, radii 60-110 nm, rotations +-0.6, ux in
+    [0.1, 0.6], uy in [-0.2, 0.2]), redrawn while an order of the
+    numG = PHYS_NUMG set lies within 0.02 of the light cone in air or glass
+    (|K|^2 against 1 and NG^2): the 1/kz basis there amplifies rounding."""
+    from metalens_tpu_torch.solver import orders as ordmod
+    rng = np.random.default_rng(seed)
+    o = ordmod.select_orders(LX, LY, PHYS_NUMG)
+    xy, u = [], []
+    while len(xy) < B:
+        cell = [[x0 + rng.uniform(-30, 30) * NM, rng.uniform(-20, 20) * NM,
+                 rng.uniform(60, 110) * NM, rng.uniform(60, 110) * NM,
+                 rng.uniform(-0.6, 0.6)] for x0 in (-LX / 3, LX / 3)]
+        ux, uy = rng.uniform(0.1, 0.6), rng.uniform(-0.2, 0.2)
+        k2 = ((ux + o[:, 0] * LAM / LX) ** 2 + (uy + o[:, 1] * LAM / LY) ** 2)
+        if min(np.abs(k2 - 1).min(), np.abs(k2 - NG ** 2).min()) < 0.02:
+            continue
+        xy.append(cell)
+        u.append((ux, uy))
+    return np.array(xy), np.array(u)
+
+
+def physics_checks(device, dtype, tmm, rcwa1d, eig_rows):
+    """The independent physics checks of one cell solve on ``device`` in
+    ``dtype``, at the bench cell's width (numG = PHYS_NUMG; the lamellar
+    line has 2 * LAMELLAR_M + 1 orders): a uniform slab against TMM, three
+    lamellar gratings against the 1D RCWA, the reciprocity identities and
+    energy of lossless and lossy pillars with NV off and on, and random
+    cells (``eig_rows`` of them compared) against the port's eigenmode
+    reference.  Returns the worst error of each check, the calls' shapes
+    (for the launch schedule) and the times (CUDA events when on CUDA)."""
+    import torch
+    from metalens_tpu_torch.solver import (checks, epsilon, orders as ordmod,
+                                           rcwa)
+    from metalens_tpu_torch.solver.eig import reference_cell_smatrix
+    rdt = {torch.complex64: torch.float32,
+           torch.complex128: torch.float64}[dtype]
+    kw = dict(dtype=rdt, device=device)
+    err, calls, times = {}, [], {}
+    timer = functools.partial(
+        stage if torch.device(device).type == "cuda" else host_stage, times)
+
+    def solved(label, S, B, n2, ns, nt, n_small):
+        require(S.s11.dtype == dtype and S.s11.device.type ==
+                torch.device(device).type and bool(torch.isfinite(
+                    torch.view_as_real(S.s11)).all()),
+                f"{label}: {S.s11.dtype} on {S.s11.device}, or non-finite")
+        calls.append(dict(label=label, B=B, n2=n2, n_slabs=ns, terms=nt,
+                          n_small=n_small))
+
+    # 1: air / (n = 2) uniform slab / glass, rect_layer_toeplitz at fill 1
+    with timer("TMM"):
+        o = ordmod.select_orders(LX, LY, PHYS_NUMG)
+        N, i0 = len(o), ordmod.order_index(o, 0, 0)
+        ns, nt = _phys_schedule(o, LX, LY, H, 4.0, dtype, 12)
+        E = epsilon.rect_layer_toeplitz(o, LX, LY, (0.0, 0.0), (LX, LY),
+                                        4.0 + 0j, device=device, dtype=dtype)
+        ux = torch.tensor([math.sin(t) for t in TMM_THETAS], **kw)
+        S, Kx, Ky = rcwa.cell_smatrix_with_eps(
+            o, E.expand(len(TMM_THETAS), N, N).contiguous(), LX, LY, H,
+            NG ** 2, LAM, ux, 0.0, n_slabs=ns, taylor_terms=nt)
+        solved("TMM", S, len(TMM_THETAS), 2 * N, ns, nt, 1)
+        worst = 0.0
+        for pol in ("s", "p"):
+            t, r = checks.order_efficiencies(S, Kx, Ky, checks.incident_vector(
+                ux, torch.zeros_like(ux), pol, i0, N), NG ** 2, NG)
+            for k, theta in enumerate(TMM_THETAS):
+                R_ref, T_ref = tmm.tmm_rt([1.0, 2.0, NG], [H], LAM, theta,
+                                          pol)
+                worst = max(worst, abs(t[k].sum().item() - T_ref),
+                            abs(r[k].sum().item() - R_ref))
+        err["TMM"] = worst
+
+    # 2: lamellar gratings (tests/test_lamellar_independent.py's cases)
+    with timer("lamellar"):
+        m = np.arange(-LAMELLAR_M, LAMELLAR_M + 1)
+        o = np.stack([m, np.zeros_like(m)], axis=1)
+        L = 900 * NM
+        E = torch.stack([epsilon.rect_layer_toeplitz(
+            o, L, LY, (0.0, 0.0), (fill * L, LY), complex(epsf),
+            device=device, dtype=dtype) for _, fill, epsf in LAMELLAR])
+        ns, nt = _phys_schedule(o, L, LY, H, max(abs(c[2]) for c in LAMELLAR),
+                                dtype, 12)
+        th = [math.radians(c[0]) for c in LAMELLAR]
+        ux = torch.tensor([math.sin(t) for t in th], **kw)
+        S, Kx, Ky = rcwa.cell_smatrix_with_eps(o, E, L, LY, H, NG ** 2, LAM,
+                                               ux, 0.0, n_slabs=ns,
+                                               taylor_terms=nt)
+        solved("lamellar", S, len(LAMELLAR), 2 * len(m), ns, nt, 1)
+        worst = 0.0
+        for pol in ("s", "p"):
+            t, r = checks.order_efficiencies(S, Kx, Ky, checks.incident_vector(
+                ux, torch.zeros_like(ux), pol, LAMELLAR_M, len(m)),
+                NG ** 2, NG)
+            for k, (theta, (_, fill, epsf)) in enumerate(zip(th, LAMELLAR)):
+                m1, r1, t1 = rcwa1d.lamellar_rcwa(
+                    pol, LAM, L, H, epsf, 1.0, 1.0, NG ** 2, theta,
+                    M=LAMELLAR_M, fill=fill)
+                require((m1 == m).all(), "lamellar order lines differ")
+                worst = max(worst, np.abs(t[k].cpu().numpy() - t1).max(),
+                            np.abs(r[k].cpu().numpy() - r1).max())
+        err["lamellar"] = worst
+
+    # 3 + 4: reciprocity at (ux, uy) against (-ux, -uy) in one batch, and
+    # energy, for lossless and absorbing pillars, NV off and on
+    _, o, perm = checks.negation_closed_orders(LX, LY, PHYS_NUMG)
+    N, i0 = len(o), ordmod.order_index(o, 0, 0)
+    xy = torch.as_tensor(np.stack([BASE, BASE]), **kw)
+    u = torch.tensor([RECIP_U[0], -RECIP_U[0]], **kw)
+    v = torch.tensor([RECIP_U[1], -RECIP_U[1]], **kw)
+    recip, energy, absorbed = 0.0, 0.0, float("inf")
+    with timer("reciprocity + energy"):
+        for eps_p in (NT ** 2 + 0j, NT ** 2 + 0.4j):
+            lossless = eps_p.imag == 0
+            ns, nt = _phys_schedule(o, LX, LY, H, abs(eps_p), dtype, 10)
+            for fff in (False, True):
+                S, Kx, Ky = rcwa.cell_smatrix(
+                    o, xy, LX, LY, H, eps_p, NG ** 2, LAM, u, v,
+                    n_slabs=ns, taylor_terms=nt, fff=fff,
+                    hermitian_eps=lossless)
+                solved(f"reciprocity eps={eps_p} fff={fff}", S, 2, 2 * N,
+                       ns, nt, (2 if fff else 1) if lossless else 0)
+                one = [rcwa.SMatrix(*(x[k:k + 1] for x in S)) for k in (0, 1)]
+                res = checks.reciprocity_residuals(
+                    one[0], one[1], perm,
+                    checks.flux_form(Kx[:1], Ky[:1], 1.0, 1.0),
+                    checks.flux_form(Kx[:1], Ky[:1], NG ** 2, NG))
+                recip = max(recip, max(r.max().item() for r in res.values()))
+                for pol in ("s", "p"):
+                    t, r = checks.order_efficiencies(
+                        S, Kx, Ky, checks.incident_vector(u, v, pol, i0, N),
+                        NG ** 2, NG)
+                    tot = (t.sum(-1) + r.sum(-1)).cpu().numpy()
+                    if lossless:
+                        energy = max(energy, np.abs(tot - 1).max())
+                    else:
+                        absorbed = min(absorbed, (1 - tot).min())
+    err["reciprocity"], err["energy"] = recip, energy
+    err["absorbed (min)"] = absorbed
+
+    # 5: random cells against the eigenmode reference, all four blocks
+    with timer("eigenmode"):
+        cells, dirs = eig_cells(EIG_CELLS)
+        o = ordmod.select_orders(LX, LY, PHYS_NUMG)
+        ns, nt = _phys_schedule(o, LX, LY, H, NT ** 2, dtype, 12)
+        S, _, _ = rcwa.cell_smatrix(
+            o, torch.as_tensor(cells, **kw), LX, LY, H, NT ** 2, NG ** 2, LAM,
+            torch.as_tensor(dirs[:, 0], **kw),
+            torch.as_tensor(dirs[:, 1], **kw), n_slabs=ns, taylor_terms=nt)
+        solved("eigenmode", S, EIG_CELLS, 2 * len(o), ns, nt, 1)
+        blocks = {k: getattr(S, k).cpu().numpy() for k in S._fields}
+    t0 = time.perf_counter()
+    worst = {k: 0.0 for k in blocks}
+    for b in range(eig_rows):
+        ref, _, _ = reference_cell_smatrix(o, cells[b], LX, LY, H, NT ** 2,
+                                           NG ** 2, LAM, *dirs[b])
+        for k in blocks:
+            want = getattr(ref, k)
+            worst[k] = max(worst[k], np.abs(blocks[k][b] - want).max()
+                           / np.abs(want).max())
+    times["eigenmode reference (host)"] = (
+        None, (time.perf_counter() - t0) * 1e3)
+    err.update({f"eigenmode {k}": e for k, e in worst.items()})
+    return err, calls, times
+
+
+@contextlib.contextmanager
+def host_stage(times, name):
+    """Time the block by the host clock alone (CPU work), in ms."""
+    t0 = time.perf_counter()
+    yield
+    times[name] = (None, (time.perf_counter() - t0) * 1e3)
+
+
+def physics_launches(calls):
+    """The kernel launches of the physics calls on CUDA: per call the
+    N-size inverses (E^-1, and <<1/eps>>^-1 with NV; none for absorbing
+    eps, which takes the pivoted solve), at 2N the slab, each doubling and
+    the two conversion stars; one Taylor call."""
+    out = {"cinv": 0, "taylor": 0, "taylor_chunks": 0}
+    for c in calls:
+        out["cinv"] += c["n_small"] + 3 + int(math.log2(c["n_slabs"]))
+        out["taylor"] += taylor_work(c["n2"], c["B"], c["terms"])[2]
+        out["taylor_chunks"] += 1
+    return out
+
+
+def _fmt_times(times):
+    return "; ".join(f"{k} {'-' if a is None else f'{a:.1f}'}, {b:.1f}"
+                     for k, (a, b) in times.items())
+
+
+def physics_phase(dev, results, path_launches, reset_counts, launch_counts):
+    """Phase 11a: the physics checks on the card in complex64 (both
+    kernels) against the oracles, each also through the port in complex128
+    on the CPU; launches against the schedule; the kernels against their
+    plain versions on this path's inputs."""
+    import torch
+    t11 = time.perf_counter()
+    tmm, rcwa1d = _load_oracle("tmm_reference"), _load_oracle(
+        "rcwa1d_reference")
+    reset_counts()
+    holder = {}
+    inv_caps, tay_caps = capture_kernels(lambda: holder.update(
+        out=physics_checks(dev, torch.complex64, tmm, rcwa1d, EIG_CELLS)))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    err, calls, times = holder["out"]
+    want = physics_launches(calls)
+    path_launches["physics"] = counts
+    print(f"phase 11a physics on the card (complex64, numG={PHYS_NUMG}): "
+          f"{len(calls)} cell solves "
+          f"{[(c['label'], c['B'], c['n2'], c['n_slabs'], c['terms']) for c in calls]}; "
+          f"launches {counts} (expected {want})")
+    print(f"phase 11a times (CUDA events ms, host ms): {_fmt_times(times)}")
+    require(all(v > 0 for v in counts.values()) and counts == want,
+            f"physics launches {counts}, expected {want}")
+    from metalens_tpu_torch.solver import epsilon, orders as ordmod
+    o = ordmod.select_orders(LX, LY, PHYS_NUMG)
+    sites = sync_sites(lambda: epsilon.rect_layer_toeplitz(
+        o, LX, LY, (0.0, 0.0), (LX, LY), 4.0 + 0j, device=dev))
+    print(f"phase 11a host syncs in rect_layer_toeplitz on the card: "
+          f"{sites or 'none'}")
+    require(not sites, f"rect_layer_toeplitz synchronizes: {sites}")
+    with cpu_threads(8):
+        err64, _, times64 = physics_checks("cpu", torch.complex128, tmm,
+                                           rcwa1d, EIG_CPU_CELLS)
+    print(f"phase 11a the same checks through the port in complex128 on the "
+          f"CPU ({EIG_CPU_CELLS} eigenmode cells; host ms): "
+          f"{_fmt_times(times64)}")
+    for name in err:
+        if name == "absorbed (min)":
+            print(f"phase 11a absorbed share of the lossy pillars (least): "
+                  f"card {err[name]:.4f}, CPU complex128 {err64[name]:.4f} "
+                  f"(must exceed {TOL_PHYS})")
+            require(min(err[name], err64[name]) > TOL_PHYS,
+                    f"the absorbing pillars absorb {err[name]}")
+            continue
+        bound64 = PHYS_TOL64[name.split()[0]]
+        print(f"phase 11a {name}: card {err[name]:.3e} (bound {TOL_PHYS}), "
+              f"CPU complex128 {err64[name]:.3e} (bound {bound64})")
+        require(err[name] <= TOL_PHYS and err64[name] <= bound64,
+                f"physics {name}: card {err[name]}, CPU {err64[name]}")
+    kernels_at_inputs(dev, results, inv_caps, tay_caps, "physics",
+                      "phase 11a", numG=PHYS_NUMG)
+    print(f"phase 11a physics: {time.perf_counter() - t11:.2f} s")
+
+
+def gds_boundary_count(path):
+    """Minimal GDSII record walk: the number of BOUNDARY records, checking
+    that the records tile the file."""
+    with open(path, "rb") as f:
+        raw = memoryview(f.read())
+    i, n, size = 0, 0, len(raw)
+    while i < size:
+        length = (raw[i] << 8) | raw[i + 1]
+        require(length >= 4, f"GDS record of length {length} at {i}")
+        if raw[i + 2] == 0x08 and raw[i + 3] == 0x00:
+            n += 1
+        i += length
+    require(i == size, "GDS records overrun the file")
+    return n
+
+
+def export_phase(lens):
+    """Phase 11b: the native exporter built from the checkout, the whole
+    lens of phase 8b written natively, the native files against the Python
+    writers byte for byte on its first and last EXPORT_CHECK pillars, and
+    the GDS read back."""
+    from metalens_tpu_torch import export
+    xyrra = lens["xyrra"]
+    n = len(xyrra)
+    outdir = os.path.join(REPO, "build", "export_check")
+    os.makedirs(outdir, exist_ok=True)
+    times = {}
+    with stage(times, "build"):
+        export._native_lib()
+    makers = {"dxf": export.make_dxf, "svg": export.make_svg,
+              "gds": export.make_gds}
+    for fmt, make in makers.items():
+        path = os.path.join(outdir, f"lens.{fmt}")
+        with stage(times, f"native {fmt}"):
+            make(xyrra, path, use_native=True)
+        size = os.path.getsize(path)
+        if fmt == "gds":
+            with stage(times, "gds walk"):
+                n_bound = gds_boundary_count(path)
+            require(n_bound == n, f"GDS holds {n_bound} boundaries, the "
+                    f"lens {n} pillars")
+        os.remove(path)
+        sec = times[f"native {fmt}"][1] / 1e3
+        print(f"phase 11b native {fmt}: {n} pillars, {size / 2 ** 20:.1f} MiB "
+              f"in {sec:.2f} s ({n / sec:,.0f} pillars/s)"
+              + (f"; read back: {n_bound} boundaries" if fmt == "gds" else ""))
+    # the first pillars are the centre's circles, the last the periphery's
+    # ellipses (polylines and rotated ellipses)
+    for end, part in (("first", xyrra[:EXPORT_CHECK]),
+                      ("last", xyrra[-EXPORT_CHECK:])):
+        circles = int((part[:, 2] == part[:, 3]).sum())
+        for fmt, make in makers.items():
+            paths = [os.path.join(outdir, f"{end}_{k}.{fmt}")
+                     for k in ("native", "python")]
+            make(part, paths[0], use_native=True)
+            with stage(times, f"python {fmt} ({end})"):
+                make(part, paths[1], use_native=False)
+            with open(paths[0], "rb") as f1, open(paths[1], "rb") as f2:
+                same = f1.read() == f2.read()
+            for p in paths:
+                os.remove(p)
+            print(f"phase 11b {end} {len(part)} pillars ({circles} circles), "
+                  f"{fmt}: native and Python writers byte-identical: {same}")
+            require(same, f"native {fmt} differs from the Python writer on "
+                    f"the {end} pillars")
+    print(f"phase 11b times (CUDA events ms, host ms): {_fmt_times(times)}")
+
+
+def demo_phase():
+    """Phase 11c: the port's collimator demo end to end on the card, in a
+    subprocess at its defaults with --rgb, its printed lines parsed."""
+    import re
+    from metalens_tpu_torch.geometry import good_fft_number
+    from metalens_tpu_torch.materials import n_glass
+    outdir = os.path.join(REPO, "build", "demo_out")
+    cmd = [sys.executable, "-m", "metalens_tpu_torch.examples.collimator_demo",
+           "--rgb", "--outdir", outdir]
+    times = {}
+    with stage(times, "demo"):
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=DEMO_TIMEOUT_S)
+    for line in proc.stdout.splitlines():
+        print(f"phase 11c | {line}")
+    require(proc.returncode == 0, f"the demo exited {proc.returncode}: "
+            f"{proc.stderr[-3000:]}")
+    out = proc.stdout
+    members = int(re.search(r"collection: (\d+) members", out).group(1))
+    pillars = int(re.search(r"lens: (\d+) pillars", out).group(1))
+    metrics = {int(w): tuple(map(float, vals)) for w, *vals in re.findall(
+        r"\[(\d+)nm\] transmission: ([-\d.]+)\s+peak \(ux, uy\) = "
+        r"\(([-\d.]+), ([-\d.]+)\)\s+0\.1-cone fraction: ([-\d.]+)", out)}
+    sizes = {f: os.path.getsize(os.path.join(outdir, f"collimator.{f}"))
+             for f in ("dxf", "svg", "gds")}
+    # the far field's bin at 580 nm: the demo's aperture (radius 10.9 um,
+    # 1.05 of it on each side) at good_fft_number points
+    half = 10.9e-6 * 1.05
+    n_pts = good_fft_number(2 * half / (LAM / 2.2))
+    bin_u = (LAM / n_glass(LAM)) / (2 * half / (n_pts - 1) * n_pts)
+    t580, pux, puy, cone = metrics[580]
+    print(f"phase 11c demo: {members} members, {pillars} pillars (JAX demo "
+          f"documents about 75 and 1,700); export sizes {sizes} bytes; "
+          f"wall {times['demo'][1] / 1e3:.1f} s")
+    for w, doc in ((450, 0.725), (580, 0.843), (650, 0.884)):
+        t, ux, uy, c = metrics[w]
+        print(f"phase 11c {w} nm: transmission {t:.3f} (JAX demo documents "
+              f"{doc}), peak ({ux:.3f}, {uy:.3f}), 0.1-cone fraction "
+              f"{c:.3f}")
+    require(members > 1 and pillars > 0 and all(sizes.values()),
+            f"demo: {members} members, {pillars} pillars, sizes {sizes}")
+    require(set(metrics) == {450, 580, 650}, f"demo wavelengths {metrics}")
+    require(abs(pux) <= bin_u and abs(puy) <= bin_u and t580 >= 0.75,
+            f"demo at 580 nm: peak ({pux}, {puy}) against a bin of "
+            f"{bin_u:.4f}, transmission {t580}")
+    print(f"phase 11c 580 nm: peak within one bin ({bin_u:.4f}) of (0, 0), "
+          f"transmission {t580:.3f} >= 0.75")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2284,6 +2714,11 @@ def main():
     # ---- phase 10: the sharded paths through a NCCL process group -------
     parallel_phase(dev, results, path_launches, reset_counts, launch_counts,
                    gd, gc7, lens)
+
+    # ---- phase 11: physics checks, native export, the demo --------------
+    physics_phase(dev, results, path_launches, reset_counts, launch_counts)
+    export_phase(lens)
+    demo_phase()
 
     # launches: the sum over the counted runs of each path
     kernels = [dict(name=name,

@@ -4,8 +4,11 @@ The unit-cell RCWA solve, the figure of merit and its shape gradient, the
 design loop (the host optimizers, the fused ratchets with their accept
 logic on the device, and ``vary_angle``), the amplitude
 databases (characterize, the interpolators, ``HexGridSet``, npz save and
-load) and the lens check (assembly, the near-field stitch, the far field
-and its focal metrics) run here in PyTorch, with
+load), the lens check (assembly, the near-field stitch, the far field
+and its focal metrics), the solver's general S-matrix API with its
+eigenmode reference, fabrication export (``export``), plots (``viz``,
+which needs matplotlib) and the sharded paths (``parallel``) run here in
+PyTorch, with
 the two TPU kernels of the JAX package (``solver/pallas_taylor.py``,
 ``solver/pallas_inv.py``) replaced by hand-written CUDA kernels for Hopper
 (``csrc/``).  The package imports ``torch`` and never ``jax``; the JAX
@@ -16,7 +19,8 @@ default on the CPU (parity with the JAX package in float64), complex64 on
 CUDA, where the kernels run.
 """
 
-
+from . import units, materials, geometry  # noqa: F401
+from .units import nm, um, degree  # noqa: F401
 from .grating import (Grating, GratingCollection, validate,  # noqa: F401
                       resize, min_diameter, min_distance)
 from .solver.fom import FomTerm, DEFAULT_FOM_TERMS  # noqa: F401

@@ -213,15 +213,7 @@ def _fom_eval(xyrra, mx, my, i0, tgt, Lx, Ly, h, eps_p, eps_g, lam, ux,
     return total / wsum
 
 
-def _device(device) -> torch.device:
-    """The entry points' device; CUDA must exist when it is asked for (the
-    default), so that no call silently runs on the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the entry points run on the GPU "
-                           "by default; pass device='cpu' for the plain "
-                           "PyTorch versions")
-    return device
+_device = cpx.resolve_device
 
 
 def _order_tensors(orders, device):

@@ -15,15 +15,29 @@ numpy.
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 
 from . import geometry
+from .materials import n_glass  # noqa: F401  (the JAX package's re-export)
 from .units import nm, um, degree, pi
+
+__all__ = [
+    "Grating", "GratingCollection", "validate", "resize",
+    "min_diameter", "min_distance", "ellipse_pts",
+    "sq_distance_mod", "distance_mod", "stretch_pattern", "n_glass",
+]
 
 # fabrication constraints (reference ``grating.py:509-510``)
 min_diameter = 100 * nm
 min_distance = 100 * nm
+
+# the geometry helpers under the names the JAX package's grating module has
+ellipse_pts = geometry.ellipse_pts
+sq_distance_mod = geometry.sq_distance_mod
+distance_mod = geometry.distance_mod
+stretch_pattern = geometry.stretch_pattern
 
 
 class Grating:
@@ -150,6 +164,46 @@ class Grating:
         from .serialization import save
         return save(self, path)
 
+    def write(self, directory, angle_in_air=None, index=None, replicas=False,
+              ux_min=None, ux_max=None, uy_min=None, uy_max=None,
+              u_steps=None, wavelength=None, numG=50):
+        """Write the reference's two-file job format (``grating_setup.txt``
+        and ``grating_xyrra_list.txt``, with ``index`` appended to both
+        names, reference ``grating.py:203-261``) into ``directory``, with the
+        JAX package's bytes: a FOM job with ``angle_in_air``, else a
+        characterize job with the sweep arguments.  ``replicas`` adds the
+        boundary-crossing periodic replicas a non-periodic external
+        simulation needs.  The solver never reads these files."""
+        os.makedirs(directory, exist_ok=True)
+        sfx = str(index) if index is not None else ""
+        with open(os.path.join(directory, f"grating_setup{sfx}.txt"),
+                  "w") as f:
+            if angle_in_air is not None:
+                assert all(x is None for x in (ux_min, ux_max, uy_min,
+                                               uy_max, u_steps, wavelength))
+                rows = [1, self.grating_period, self.lateral_period,
+                        angle_in_air, self.n_glass, self.n_tio2,
+                        self.cyl_height, numG]
+            else:
+                assert all(x is not None for x in (ux_min, ux_max, uy_min,
+                                                   uy_max, u_steps,
+                                                   wavelength))
+                rows = [2, self.grating_period, self.lateral_period,
+                        self.n_glass, self.n_tio2, self.cyl_height, numG,
+                        ux_min, ux_max, uy_min, uy_max, u_steps,
+                        round(wavelength / nm) / 1000]
+            for r in rows:
+                print(r, file=f)
+        xyrra = self.get_xyrra_list(
+            units="um,deg", replicas=(replicas if replicas else None))
+        np.savetxt(os.path.join(directory, f"grating_xyrra_list{sfx}.txt"),
+                   xyrra, delimiter=" ")
+
+    def show_config(self):
+        """Unit-cell plot with periodic replicas (needs matplotlib)."""
+        from .viz import show_config
+        return show_config(self)
+
     def run_lua(self, target_wavelength=None, subfolder=None, numG=50,
                 terms=None, *, device="cuda", dtype=None, **kwargs):
         """The reference's name for :meth:`fom`; with characterize keyword
@@ -217,6 +271,37 @@ class Grating:
         else:
             self.data = new_data
         return self.data
+
+
+def read_job_files(directory, index=None):
+    """Load a job written by :meth:`Grating.write` (either package's, or
+    the reference's) back into a :class:`Grating`.  Returns (grating, info):
+    info holds the mode ('fom' or 'characterize') and the other setup
+    fields."""
+    sfx = str(index) if index is not None else ""
+    with open(os.path.join(directory, f"grating_setup{sfx}.txt")) as f:
+        rows = [line.strip() for line in f if line.strip()]
+    mode = {"1": "fom", "2": "characterize"}[rows[0]]
+    gp, lp = float(rows[1]), float(rows[2])
+    if mode == "fom":
+        info = {"mode": mode, "angle_in_air": float(rows[3]),
+                "numG": int(rows[7])}
+        n_glass, n_tio2, h = float(rows[4]), float(rows[5]), float(rows[6])
+    else:
+        n_glass, n_tio2, h = float(rows[3]), float(rows[4]), float(rows[5])
+        info = {"mode": mode, "numG": int(rows[6]),
+                "ux_min": float(rows[7]), "ux_max": float(rows[8]),
+                "uy_min": float(rows[9]), "uy_max": float(rows[10]),
+                "u_steps": int(rows[11]),
+                "wavelength": float(rows[12]) * 1e-6}
+    xyrra_nm_deg = np.atleast_2d(np.loadtxt(
+        os.path.join(directory, f"grating_xyrra_list{sfx}.txt"))).copy()
+    xyrra_nm_deg[:, 0:4] *= 1000.0
+    g = Grating(lateral_period=lp, grating_period=gp, cyl_height=h,
+                n_glass=int(n_glass) if n_glass == int(n_glass) else n_glass,
+                n_tio2=int(n_tio2) if n_tio2 == int(n_tio2) else n_tio2,
+                xyrra_list_in_nm_deg=xyrra_nm_deg)
+    return g, info
 
 
 def validate(mygrating, print_details=False, similar_to=None, how_similar=None):
@@ -487,6 +572,57 @@ class GratingCollection:
         :mod:`metalens_tpu_torch.serialization`)."""
         from .serialization import save
         return save(self, path)
+
+    def show_efficiencies(self, numG=100, plot=True, *, device="cuda",
+                          dtype=None):
+        """FOM of every member at the collection's target wavelength
+        (reference ``grating.py:1059-1080``), printed and returned as
+        (angle_in_air, fom) pairs; ``plot`` draws them (needs matplotlib).
+        Solves on CUDA unless ``device="cpu"``."""
+        from .engine import fom_of_gratings
+        foms = fom_of_gratings(self.grating_list,
+                               target_wavelength=self.target_wavelength,
+                               numG=numG, device=device, dtype=dtype)
+        out = []
+        for g, eff in zip(self.grating_list, foms):
+            angle = g.get_angle_in_air(self.target_wavelength)
+            print("angle_in_air:", angle / degree, "deg, effic:", eff)
+            out.append((angle, float(eff)))
+        if plot:
+            from .viz import plot_angle_efficiencies
+            plot_angle_efficiencies(out)
+        return out
+
+    def export_to_lumerical(self, directory="temp", angle_in_air=None,
+                            grating_period=None, lateral_period=None):
+        """Write the reference's indexed job-file series for its Lumerical
+        harness (reference ``grating.py:1137-1158``): one
+        :meth:`Grating.write` pair per member with replicas (or one member
+        chosen by angle or period, as index 0), and the one-past-the-end
+        pair removed so the harness knows where to stop."""
+        if any(x is not None for x in (angle_in_air, grating_period,
+                                       lateral_period)):
+            members = [self.get_one(angle_in_air=angle_in_air,
+                                    grating_period=grating_period,
+                                    lateral_period=lateral_period)]
+        else:
+            members = self.grating_list
+        for i, g in enumerate(members):
+            g.write(directory,
+                    angle_in_air=g.get_angle_in_air(self.target_wavelength),
+                    index=i, replicas=True)
+        end = len(members)
+        for fname in (f"grating_setup{end}.txt",
+                      f"grating_xyrra_list{end}.txt"):
+            p = os.path.join(directory, fname)
+            if os.path.isfile(p):
+                os.remove(p)
+        return directory
+
+    def show_graphs(self, *args, **kwargs):
+        """Per-member frames (see :func:`.viz.show_collection_graphs`)."""
+        from .viz import show_collection_graphs
+        return show_collection_graphs(self, *args, **kwargs)
 
     def __repr__(self):
         return ("GratingCollection("

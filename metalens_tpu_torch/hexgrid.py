@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from .grating import Grating, validate
+from .materials import n_glass as n_glass_table
 from .units import nm
 
 
@@ -107,6 +108,29 @@ class HexGridSet:
             assert len(a) == 1
             x_amp_list.append(a[0]["ampfx"])
         self.x_amp_list = np.array(x_amp_list)
+
+    def show_properties(self):
+        """Plot transmission and phase against pillar diameter at normal
+        incidence (reference ``lens_center.py:158-173``; needs
+        matplotlib)."""
+        from .viz import _plt
+        plt = _plt()
+        d_list = np.array([2 * g.xyrra_list[0, 2] for g in self.grating_list])
+        x_amp_list = self.x_amp_list
+        if self.grating_list[0].n_glass == 0:
+            ng = n_glass_table(self.grating_list[0].data[0]["wavelength_in_nm"])
+        else:
+            ng = self.grating_list[0].n_glass
+        fig, ax1 = plt.subplots()
+        Ts = abs(x_amp_list) ** 2 / ng
+        phases = np.unwrap(np.angle(x_amp_list))
+        ax1.plot(d_list / nm, Ts, "b")
+        ax1.set_ylim(0, 1)
+        plt.title("T and phase at normal incidence")
+        plt.xlabel("diameter")
+        ax2 = ax1.twinx()
+        ax2.plot(d_list / nm, phases, "g")
+        return fig
 
     def pick_from_phase(self, target_phase):
         """Best member index for a target phase: argmax of

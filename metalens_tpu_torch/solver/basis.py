@@ -94,6 +94,23 @@ def incident_sp_amplitudes(ux, uy, pol):
     return hx, hy   # = (c_y, c_x)
 
 
+def sp_to_xy_coefficients(ux, uy):
+    """The s/p -> x/y combination coefficients (x_p, x_s, y_p, y_s) of
+    incoming light in air at (ux, uy) (real tensors, on their device);
+    exactly-normal incidence takes the ux -> 0+ limit along +x,
+    (1, 0, 0, -1), as :func:`incident_sp_amplitudes` does."""
+    kap2 = ux * ux + uy * uy
+    normal = kap2 < 1e-18
+    one, zero = torch.ones_like(kap2), torch.zeros_like(kap2)
+    kap = torch.sqrt(torch.where(normal, one, kap2))
+    uz = torch.sqrt(torch.clamp(1.0 - kap2, min=0.0))
+    x_p = torch.where(normal, one, ux / kap)
+    x_s = torch.where(normal, zero, -uy / (uz * kap))
+    y_p = torch.where(normal, zero, -uy / kap)
+    y_s = torch.where(normal, -one, -ux / (uz * kap))
+    return x_p, x_s, y_p, y_s
+
+
 # ----- power -----
 
 def order_powers(c, Kx, Ky, Kz, n):
@@ -107,3 +124,9 @@ def order_powers(c, Kx, Ky, Kz, n):
     ey = Cb * cy + D * cx
     sz = ex * cx.conj() - ey * cy.conj()
     return sz.real
+
+
+def backward_order_powers(c, Kx, Ky, Kz, n):
+    """Power per order (positive = flowing toward -z) carried by amplitudes
+    c of backward modes."""
+    return -order_powers(c, Kx, Ky, -Kz, n)

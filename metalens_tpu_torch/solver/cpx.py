@@ -35,6 +35,26 @@ def complex_dtype(device, dtype=None) -> torch.dtype:
     return dtype
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point was asked for; CUDA must exist when it is
+    asked for (the default), so that no call silently runs on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the entry points run on the GPU "
+                           "by default; pass device='cpu' for the plain "
+                           "PyTorch versions")
+    return device
+
+
+def upload(array, device, dtype: torch.dtype) -> torch.Tensor:
+    """A host array on ``device``: on CUDA through pinned memory and a
+    non-blocking copy, so the upload does not synchronize the stream."""
+    t = torch.as_tensor(array, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def real_dtype(dtype: torch.dtype) -> torch.dtype:
     """The real dtype matching a complex (or real) working dtype."""
     return {torch.complex64: torch.float32, torch.complex128: torch.float64,

@@ -20,6 +20,7 @@ import functools
 import numpy as np
 import torch
 
+from . import cpx
 from .special import j1_over_x_from_sq
 
 TWO_PI = 2.0 * np.pi
@@ -65,6 +66,52 @@ def ellipse_shape_sum(gx, gy, xyrra, area, small_arg_only=False):
     return torch.complex(re, im)
 
 
+def _at_zero(gx, gy):
+    return ((gx == 0) & (gy == 0)).to(gx.dtype)
+
+
+def eps_fourier_ellipses(gx, gy, xyrra, eps_fill, eps_bg, area,
+                         small_arg_only=False):
+    """eps_hat at the wavevectors (gx, gy) (real tensors of one shape): the
+    background eps_bg plus ellipses (xyrra (..., nE, 5)) of eps_fill;
+    returns (..., *gx.shape) complex.  The eps may be complex numbers
+    (absorbing materials)."""
+    S = ellipse_shape_sum(gx.reshape(-1), gy.reshape(-1), xyrra, area,
+                          small_arg_only)
+    S = S.reshape(S.shape[:-1] + gx.shape)
+    return toeplitz_from_structure(S, _at_zero(gx, gy), eps_fill, eps_bg)
+
+
+def eps_fourier_rect(gx, gy, center, widths, eps_fill, eps_bg, area):
+    """eps_hat of one axis-aligned rectangle (center (x0, y0), widths
+    (wx, wy)) of eps_fill in eps_bg at the wavevectors (gx, gy)."""
+    x0, y0 = center
+    wx, wy = widths
+    shape_ft = (wx * wy * torch.sinc(gx * wx / (2 * np.pi))
+                * torch.sinc(gy * wy / (2 * np.pi)))
+    arg = -(gx * x0 + gy * y0)                         # e^{-i G.r0}
+    S = torch.complex(torch.cos(arg) * shape_ft,
+                      torch.sin(arg) * shape_ft) * (1.0 / area)
+    return toeplitz_from_structure(S, _at_zero(gx, gy), eps_fill, eps_bg)
+
+
+def rect_layer_toeplitz(orders, grating_period, lateral_period, center,
+                        widths, eps_fill, eps_bg=1.0, *, device="cuda",
+                        dtype=None):
+    """(N, N) Laurent Toeplitz eps matrix of one rectangle per cell (a
+    lamellar grating, or a uniform layer at full widths), built on
+    ``device`` (CUDA unless ``device="cpu"``) in the complex ``dtype``
+    (complex128 on the CPU, complex64 on CUDA by default); the order
+    differences go up without a host sync."""
+    device = cpx.resolve_device(device)
+    rdt = cpx.real_dtype(cpx.complex_dtype(device, dtype))
+    area = grating_period * lateral_period
+    dmx, dmy = _order_differences(orders)
+    gx = cpx.upload(dmx, device, rdt) * (TWO_PI / grating_period)
+    gy = cpx.upload(dmy, device, rdt) * (TWO_PI / lateral_period)
+    return eps_fourier_rect(gx, gy, center, widths, eps_fill, eps_bg, area)
+
+
 def ellipse_structure_toeplitz(orders, grating_period, lateral_period,
                                xyrra, small_arg_only=False):
     """The wavelength- and material-independent Toeplitz structure pair
@@ -76,7 +123,7 @@ def ellipse_structure_toeplitz(orders, grating_period, lateral_period,
     gx = torch.as_tensor(dmx_u, **kw) * (TWO_PI / grating_period)
     gy = torch.as_tensor(dmy_u, **kw) * (TWO_PI / lateral_period)
     S_flat = ellipse_shape_sum(gx, gy, xyrra, area, small_arg_only)
-    zero_flat = ((gx == 0) & (gy == 0)).to(xyrra.dtype)
+    zero_flat = _at_zero(gx, gy)
     idx = torch.as_tensor(gather, device=xyrra.device)
     return S_flat[..., idx], zero_flat[idx]
 

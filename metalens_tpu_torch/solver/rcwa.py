@@ -108,6 +108,13 @@ def thin_slab_T_blocks(F, G, t, taylor_terms: int):
     return CS, SF * 1j * tt, GS * 1j * tt, I + GRF * (tt * tt)
 
 
+def _transfer_to_smatrix(M11, M12, M21, M22) -> SMatrix:
+    """Amplitude-space transfer matrix -> scattering matrix."""
+    M22inv = cpx.inverse(M22)
+    s21 = -(M22inv @ M21)
+    return SMatrix(M11 + M12 @ s21, M12 @ M22inv, s21, M22inv)
+
+
 def _transfer_to_smatrix_symmetric(M21, M22) -> SMatrix:
     """Transfer -> scattering for a mirror-symmetric slab: s11 = s22 =
     M22^-1 and s12 = s21 = -M22^-1 M21."""
@@ -116,17 +123,24 @@ def _transfer_to_smatrix_symmetric(M21, M22) -> SMatrix:
     return SMatrix(M22inv, s21, s21, M22inv)
 
 
-def slab_smatrix_in_basis(T, we, we_inv) -> SMatrix:
+def slab_smatrix_in_basis(T, we, we_inv, symmetric: bool = True) -> SMatrix:
     """Field-space transfer blocks T of a z-uniform slab -> amplitude-space
     S-matrix in the uniform-medium basis ``we`` / ``we_inv`` (same medium
     both sides; e = We (c_f - c_b), h = c_f + c_b).  Such a slab is mirror
-    symmetric, so only M21 and M22 are formed."""
+    symmetric, so ``symmetric=True`` forms only M21 and M22; ``False``
+    takes the general transfer -> scattering conversion."""
     T11, T12, T21, T22 = T
     T11we = _right_bmul(T11, we)
     T21we = _right_bmul(T21, we)
-    M21 = (-_left_bmul(we_inv, T11we + T12) + (T21we + T22)) * 0.5
-    M22 = (-_left_bmul(we_inv, -T11we + T12) + (-T21we + T22)) * 0.5
-    return _transfer_to_smatrix_symmetric(M21, M22)
+    P11, P12 = T11we + T12, -T11we + T12       # act on c_f, c_b
+    P21, P22 = T21we + T22, -T21we + T22
+    M21 = (-_left_bmul(we_inv, P11) + P21) * 0.5
+    M22 = (-_left_bmul(we_inv, P12) + P22) * 0.5
+    if symmetric:
+        return _transfer_to_smatrix_symmetric(M21, M22)
+    M11 = (_left_bmul(we_inv, P11) + P21) * 0.5
+    M12 = (_left_bmul(we_inv, P12) + P22) * 0.5
+    return _transfer_to_smatrix(M11, M12, M21, M22)
 
 
 def redheffer_star_self_symmetric(S: SMatrix) -> SMatrix:
@@ -138,6 +152,19 @@ def redheffer_star_self_symmetric(S: SMatrix) -> SMatrix:
     s11 = S.s11 @ Y
     s12 = S.s12 + S.s11 @ (S.s12 @ Y)
     return SMatrix(s11, s12, s12, s11)
+
+
+def redheffer_star(A: SMatrix, B: SMatrix) -> SMatrix:
+    """Stack S-matrix A (top) on B (bottom): the general star product, one
+    solve with both right-hand sides."""
+    n2 = A.s11.shape[-1]
+    I = cpx.eye(n2, A.s11)
+    X = cpx.solve(I - A.s12 @ B.s21,
+                  torch.cat([A.s11, A.s12 @ B.s22], dim=-1))
+    XA11, XA12B22 = X[..., :, :n2], X[..., :, n2:]
+    return SMatrix(B.s11 @ XA11, B.s12 + B.s11 @ XA12B22,
+                   A.s21 + A.s22 @ (B.s21 @ XA11),
+                   A.s22 @ (B.s21 @ XA12B22 + B.s22))
 
 
 class BlockSMatrix(NamedTuple):
@@ -166,6 +193,12 @@ def interface_smatrix_blocks(we_top, we_top_inv, we_bot, we_bot_inv) \
                   zip(M11, basis.block_compose(M12, s21_b)))
     s12_b = basis.block_compose(M12, M22inv)
     return BlockSMatrix(s11_b, s12_b, s21_b, M22inv)
+
+
+def interface_smatrix(we_top, we_top_inv, we_bot, we_bot_inv) -> SMatrix:
+    """Dense form of :func:`interface_smatrix_blocks`."""
+    b = interface_smatrix_blocks(we_top, we_top_inv, we_bot, we_bot_inv)
+    return SMatrix(*(basis.block_to_dense(x) for x in b))
 
 
 FULL_OUTPUTS = ("s11", "s12", "s21", "s22")
@@ -223,6 +256,23 @@ def star_dense_blockdiag(A: SMatrix, B: BlockSMatrix,
 
 
 # ----- slab schedule -----
+
+def default_n_slabs(k0h_max: float, q2_max: float, target: float = 4.5) -> int:
+    """Smallest power of two slab count with t*q_max <= target (4.5 pairs
+    with the 12-term series)."""
+    n = max(1.0, k0h_max * math.sqrt(q2_max) / target)
+    return int(2 ** math.ceil(math.log2(n)))
+
+
+def q2_upper_bound(orders, grating_period, lateral_period, wavelength,
+                   eps_max: float) -> float:
+    """Cheap upper bound on the spectral radius of FG (normalized q^2)."""
+    orders = np.asarray(orders)
+    kx = orders[:, 0] * wavelength / grating_period
+    ky = orders[:, 1] * wavelength / lateral_period
+    kmax2 = float(((np.abs(kx) + 1.0) ** 2 + (np.abs(ky) + 1.0) ** 2).max())
+    return kmax2 + eps_max
+
 
 # Per-slab t*q caps by working precision (measured table and mechanism in
 # ``metalens_tpu/solver/rcwa.py`` above SLAB_CAP_F64): in float32 the slab
@@ -487,3 +537,12 @@ def cell_amplitudes(orders, xyrra, grating_period, lateral_period,
         taylor_terms=taylor_terms, branch_eps=branch_eps,
         M_blocks=M_blocks, hermitian_eps=hermitian_eps,
         want_reflection=want_reflection)
+
+
+def scatter_amplitudes(S: SMatrix, c_inc):
+    """Transmitted (into glass, forward) and reflected (into air, backward)
+    amplitudes (s11 @ c, s21 @ c) for incident amplitudes c_inc ((2N,),
+    (2N, K) or (B, 2N, K), in S4's [y-block; x-block] layout), moved to
+    S's device and dtype."""
+    c = torch.as_tensor(c_inc).to(device=S.s11.device, dtype=S.s11.dtype)
+    return S.s11 @ c, S.s21 @ c

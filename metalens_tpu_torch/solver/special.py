@@ -41,6 +41,14 @@ def j1(x: torch.Tensor) -> torch.Tensor:
     return torch.where(ax < 8.0, small, big)
 
 
+def j1_over_x(x: torch.Tensor) -> torch.Tensor:
+    """J1(x)/x with the limit 1/2 at x = 0 (a quadratic Taylor branch below
+    |x| = 1e-6, so the gradient stays clean there)."""
+    small = torch.abs(x) < 1e-6
+    safe = torch.where(small, torch.ones_like(x), x)
+    return torch.where(small, 0.5 - x * x / 16.0, j1(safe) / safe)
+
+
 def j1_small(x: torch.Tensor) -> torch.Tensor:
     """J1 for |x| < 8 only (the rational fit; the caller guarantees the
     range)."""

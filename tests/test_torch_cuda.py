@@ -397,3 +397,31 @@ def test_sharded_step_on_a_one_rank_nccl_group(cuda_device, tmp_path):
         assert (g.cpu().double() - gr).norm() <= 2e-3 * gr.norm()
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_reciprocity_of_a_lossless_cell_on_cuda(cuda_device):
+    """The four Lorentz reciprocity identities of one lossless NV cell,
+    solved on the card in complex64 at (0.31, 0.12) and (-0.31, -0.12) in
+    one batch: each relative residual within 2e-3 (the accuracy guard of
+    bench.py); both kernels launch."""
+    from metalens_tpu_torch.solver import checks
+    _, orders, perm = checks.negation_closed_orders(LX, LY, 25)
+    ns, terms = rcwa.slab_schedule(2 * np.pi * H / LAM, orders, LX, LY, LAM,
+                                   NT ** 2, dtype=torch.float32)
+    kw = dict(dtype=torch.float32, device=cuda_device)
+    xy = torch.as_tensor(np.stack([BASE, BASE]), **kw)
+    u = torch.tensor([0.31, -0.31], **kw)
+    v = torch.tensor([0.12, -0.12], **kw)
+    before = (inv.launches, taylor.launches)
+    S, Kx, Ky = rcwa.cell_smatrix(orders, xy, LX, LY, H, NT ** 2, NG ** 2,
+                                  LAM, u, v, n_slabs=ns, taylor_terms=terms,
+                                  fff=True)
+    assert inv.launches > before[0] and taylor.launches > before[1]
+    assert S.s11.dtype == torch.complex64 and S.s11.is_cuda
+    one = [rcwa.SMatrix(*(x[k:k + 1] for x in S)) for k in (0, 1)]
+    res = checks.reciprocity_residuals(
+        one[0], one[1], perm, checks.flux_form(Kx[:1], Ky[:1], 1.0, 1.0),
+        checks.flux_form(Kx[:1], Ky[:1], NG ** 2, NG))
+    for name, r in res.items():
+        assert float(r.max()) <= 2e-3, (name, float(r.max()))
