@@ -29,7 +29,11 @@ values, then ``benchmarks/northstar2.py``'s 0.5 mm collimator at 580 nm
 (databases at numG = 100, ``make_design``, the stitch at 1944 x 1944
 points, the far field, the focal metrics), with near-field slabs and the
 far field held to CPU complex128, the kernels held to their plain versions
-on the lens's characterize inputs, and the stages timed and profiled.
+on the lens's characterize inputs, and the stages timed and profiled; 8c
+then characterizes the same lens's databases at 450 and 650 nm as well
+(appended), designs it once more and runs the stitch, the far field and
+the focal metrics at each of northstar2's three wavelengths on its grid
+for that wavelength, each held to CPU complex128 as at 580 nm.
 Phase 9 drives the fused design loop at ``benchmarks/northstar2.py``'s
 design config (5 pillars at 19.7 deg, its RGB terms, numG = 50):
 ``optimize_fused`` then ``optimize2_fused`` (40 attempts) with the loop's
@@ -63,16 +67,21 @@ plain versions on these inputs; 11b, the native exporter built from
 (pillars/s), the native files against the Python writers byte for byte on
 its first and last 20,000 pillars and the GDSII read back; 11c, the port's
 collimator demo (``metalens_tpu_torch.examples.collimator_demo --rgb``) in a
-subprocess, its printed lines parsed and checked.
+subprocess, its printed lines parsed and checked.  Phase 12 runs
+``benchmarks/run_configs.py`` configs 1-4 at ``--scale small`` through the
+port on the card (their twins below, seeded as the JAX run was) and holds
+each config's headline values to the JAX package's (``CONFIGS_JAX``);
+config 5 is phase 8a.
 
     python3 chip_smoke.py
 
 Every phase is fatal: a failed check exits nonzero.  The last two lines of
 standard output are a JSON object describing each kernel (launches in the
 counted runs of the main path at numG = 50 and numG = 100, of one
-``fom_value_and_grad`` call, of the characterize sweeps, of the fused
-member, of the sharded step, sweep and member and of the physics checks,
-summed and per path, with the inverse's per route; error against the plain
+``fom_value_and_grad`` call, of the characterize sweeps (the lens's at
+580 nm and at 450 + 650 nm among them), of the fused member, of the sharded
+step, sweep and member, of the physics checks and of each config of phase
+12, summed and per path, with the inverse's per route; error against the plain
 version; times and bound at the main path's bench size, and the same per
 size under ``sizes``) and ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits nonzero
 before printing any result.  Imports nothing of JAX.
@@ -115,6 +124,46 @@ AMPS = ("ampfy", "ampfx", "ampry", "amprx")
 #     python benchmarks/run_configs.py --config 5
 CONFIG5_JAX = {"transmission": 0.9157, "spot_fraction_of_total": 0.6281}
 TOL_CONFIG5 = 1e-3
+# Phase 12's anchors: benchmarks/run_configs.py configs 1-4 at --scale small
+# through the JAX package on the CPU in float32, each in its own process
+# with random and numpy.random seeded to 0 before the run, as printed by
+#     python -c "import random, runpy, sys, numpy; random.seed(0); \
+#       numpy.random.seed(0); sys.argv = ['run_configs.py', '--cpu', \
+#       '--config', 'K']; runpy.run_path('benchmarks/run_configs.py', \
+#       run_name='__main__')"
+# (K = 1..4; values as printed, rounded).  The FOM after optimize_gradient
+# (config 2) and each member's FOM (config 3) come from the same command
+# with metalens_tpu.optimize.optimize_gradient and .vary_angle wrapped,
+# after the seeding, to print the FOM of what they return (Grating.fom at
+# the config's numG and terms, which draws no random number; the run's
+# printed values are unchanged):
+#     import metalens_tpu.optimize as O
+#     og, va = O.optimize_gradient, O.vary_angle
+#     def grad(g, *a, **k):
+#         out = og(g, *a, **k)
+#         print(out.fom(k["target_wavelength"], numG=k["numG"],
+#                       terms=k["terms"])); return out
+#     def vary(*a, **k):
+#         gc = va(*a, **k)
+#         print([g.fom(k["target_wavelength"], numG=k["numG"],
+#                      terms=k["terms"]) for g in gc.grating_list]); return gc
+#     O.optimize_gradient, O.vary_angle = grad, vary
+# ``import jax`` draws from numpy.random, so that run's optimize2 draws
+# differ from a run seeded after the imports, as this script's is (it
+# imports torch and the port before seeding).  "fom_end_same_draws" is
+# config 2's fom_end from the wrapped command with the seeding moved after
+# ``import metalens_tpu.optimize``: the sequence the port draws.
+CONFIGS_JAX = {
+    1: {"phase_span_rad": 3.866},
+    2: {"fom_start": 0.1023, "fom_after_gradient": 0.2364051342010498,
+        "fom_end": 0.241, "fom_end_same_draws": 0.23849324882030487},
+    3: {"members": 2, "db_entries": 400,
+        "member_foms": [0.2415083646774292, 0.2643738090991974]},
+    4: {"pillars": 1149, "aperture_pts": 3600}}
+TOL_CONFIG1 = 2e-3        # rad
+TOL_CONFIG2 = {"fom_start": 1e-3, "fom_after_gradient": 2e-3,
+               "fom_end": 5e-3, "fom_end_same_draws": 2e-3}
+TOL_CONFIG3_FOM = 2e-3
 TOL_NEARFIELD = 2e-3  # stitch on the card vs CPU complex128, of field max
 TOL_FARFIELD = 1e-4   # far field on the card vs CPU complex128
 # benchmarks/northstar2.py's production lens at 580 nm: a 0.5 mm aperture,
@@ -798,22 +847,31 @@ def stage(times, name):
     times[name] = (start.elapsed_time(end), (time.perf_counter() - t0) * 1e3)
 
 
-def lens_metrics(nf, ff, lps, lcs, hgs, d, half, spot_u, device="cuda"):
+def lens_metrics(nf, ff, lps, lcs, hgs, d, half, spot_u, device="cuda",
+                 lam=LAM, times=None):
     """The lens check of benchmarks/run_configs.py config 5 and
-    northstar2.py: an 'x' dipole at (0, 0, -d), the aperture
-    [-half, half]^2 at good_fft_number points per side, the stitch, the far
-    field and the focal metrics."""
+    northstar2.py at wavelength ``lam``: an 'x' dipole at (0, 0, -d), the
+    aperture [-half, half]^2 at good_fft_number points per side (lam / 2.2
+    apart), the stitch, the far field and the focal metrics; with
+    ``times``, each of the two stages timed there (``stage``)."""
     from metalens_tpu_torch.geometry import good_fft_number
-    pts = np.linspace(-half, half, good_fft_number(2 * half / (LAM / 2.2)))
-    out = nf.build_nearfield(0.0, 0.0, -d, "x", LAM, lps, lcs, hgs, pts, pts,
-                             dipole_moment=1e-30, device=device)
-    far = ff.farfield(*out[:4], pts, pts, LAM, out[7], device=device)
-    P, tot, ux, uy, dux, duy = far
-    return out, far, ff.focal_metrics(P, ux, uy, dux, duy, tot, out[6],
-                                      spot_radius_u=spot_u)
+    pts = np.linspace(-half, half, good_fft_number(2 * half / (lam / 2.2)))
+
+    def timed(name):
+        return (contextlib.nullcontext() if times is None
+                else stage(times, name))
+    with timed("stitch"):
+        out = nf.build_nearfield(0.0, 0.0, -d, "x", lam, lps, lcs, hgs, pts,
+                                 pts, dipole_moment=1e-30, device=device)
+    with timed("far field + focal metrics"):
+        far = ff.farfield(*out[:4], pts, pts, lam, out[7], device=device)
+        P, tot, ux, uy, dux, duy = far
+        m = ff.focal_metrics(P, ux, uy, dux, duy, tot, out[6],
+                             spot_radius_u=spot_u)
+    return out, far, m
 
 
-def classification(nf, lps, lcs, hgs, d, xs, ys, device):
+def classification(nf, lps, lcs, hgs, d, xs, ys, device, lam=LAM):
     """The stitch's point classification on ``device``: collection index,
     centre flag, the grating copy's rotation (cos) and the centre site."""
     import torch
@@ -822,13 +880,80 @@ def classification(nf, lps, lcs, hgs, d, xs, ys, device):
         indexing="ij"))
     planes = nf._geometry_planes(
         X, Y, *nf._ring_tables(lps, device), lps["r_max_list"][-1], 0.0, 0.0,
-        -d, 2 * math.pi / LAM, [1, 0, 0], 1.0, 1e-30, True, False,
+        -d, 2 * math.pi / lam, [1, 0, 0], 1.0, 1e-30, True, False,
         torch.complex64)
     table, n1, n2 = nf._hex_site_table(lcs, hgs.sep, device)
     rows, _ = nf._nearest_center_site(
         X, Y, table, n1, n2, hgs.sep,
         torch.as_tensor(lcs[:, 0:2], device=device))
     return [planes[0].cpu(), planes[1].cpu(), planes[8].cpu(), rows.cpu()]
+
+
+@contextlib.contextmanager
+def cpu_tables(objs):
+    """The objects' interpolators swapped for complex128 tables built on
+    the CPU from the same database entries; the card's are put back
+    after."""
+    card = [obj.interpolators for obj in objs]
+    for obj in objs:
+        obj.build_interpolators(device="cpu")
+    try:
+        yield
+    finally:
+        for obj, tables in zip(objs, card):
+            obj.interpolators = tables
+
+
+def nearfield_slabs(nf, lens, out, lam, slabs, dev):
+    """The card's near field ``out`` against the stitch in complex128 on
+    the CPU (tables on the CPU: ``cpu_tables``) on slabs of 8 columns
+    centred at the ``slabs`` positions (name, y): the max |diff| over Ex,
+    Ey, Hx, Hy as a share of each field's max, and the count of points the
+    two devices classify differently (collection, centre flag, rotation,
+    centre site)."""
+    import torch
+    lps, lcs, hgs, d, pts = (lens[k] for k in ("lps", "lcs", "hgs", "d",
+                                               "pts"))
+    fmax = [f.abs().max().item() for f in out[:4]]
+    slab_err, n_class = {}, {}
+    for name, y in slabs:
+        c0 = int(np.argmin(np.abs(pts - y))) - 4
+        cols = slice(c0, c0 + 8)
+        ref = nf.build_nearfield(0.0, 0.0, -d, "x", lam, lps, lcs, hgs, pts,
+                                 pts[cols], dipole_moment=1e-30,
+                                 device="cpu")
+        require(ref[0].dtype == torch.complex128, f"CPU slab {ref[0].dtype}")
+        slab_err[name] = max(
+            (f[:, cols].cpu().to(r.dtype) - r).abs().max().item() / fm
+            for f, r, fm in zip(out[:4], ref[:4], fmax))
+        cls = [classification(nf, lps, lcs, hgs, d, pts, pts[cols], dv, lam)
+               for dv in (dev, "cpu")]
+        (g1, c1, r1, s1), (g2, c2, r2, s2) = cls
+        n_class[name] = int(((g1 != g2) | (c1 != c2)
+                             | ((r1 - r2).abs() > 1e-9)
+                             | (c1 & (s1 != s2))).sum())
+    return slab_err, n_class
+
+
+def farfield_vs_cpu(ff, out, far, m, pts, lam, spot_u, what):
+    """The card's far field and focal metrics against ``farfield()`` in
+    complex128 on the CPU of the card's near field copied to the host:
+    relative errors (P as a share of its max)."""
+    import torch
+    P, tot, ux, uy, dux, duy = far
+    Pr, totr, *_ = ff.farfield(*(f.cpu() for f in out[:4]), pts, pts, lam,
+                               out[7], device="cpu")
+    mr = ff.focal_metrics(Pr, ux, uy, dux, duy, totr, out[6],
+                          spot_radius_u=spot_u)
+    Pc = P.cpu().double()
+    fin = torch.isfinite(Pr)
+    require(bool((torch.isfinite(Pc) == fin).all()),
+            f"{what} far field: finite bins differ from the CPU's")
+    far_err = {"P": ((Pc - Pr)[fin].abs().max() / Pr[fin].max()).item(),
+               "total_P": abs(tot - totr) / totr}
+    for k in ("transmission", "spot_fraction_of_total"):
+        far_err[k] = abs(m[k] - mr[k]) / mr[k]
+    return far_err
 
 
 def lens_phase(dev, results, path_launches, reset_counts, launch_counts):
@@ -846,23 +971,19 @@ def lens_phase(dev, results, path_launches, reset_counts, launch_counts):
     deg = math.pi / 180
 
     # 8a: benchmarks/run_configs.py config 5 at --scale small, on the card
-    # and on the CPU in complex128 (the same calls with device="cpu")
-    d, radius = 25e-6, 7.5e-6
-    hi = math.atan(radius / d) + 1 * deg
-
+    # and on the CPU in complex128 (the same calls with device="cpu"):
+    # config 4's lens and near field, then the far field
     def config5(device):
-        gc = round_collection(8.0, hi / deg)
-        gc.characterize(LAM, numG=20, u_steps=3, device=device)
-        gc.build_interpolators(device=device)
-        hgs = HexGridSet(sep=320 * NM, cyl_height=H, num_entries=5)
-        hgs.characterize(wavelength=LAM, numG=20, just_normal=False,
-                         u_steps=3, device=device)
-        hgs.build_interpolators(device=device)
-        lps, lcs, _ = make_design([[(8.0 * deg, hi), gc]], d, radius, hgs)
-        out, _, m = lens_metrics(nf, ff, lps, lcs, hgs, d, 1.05 * radius,
-                                 0.15, device)
-        return out[0], m
-    got = {device: config5(device) for device in ("cuda", "cpu")}
+        res, _ = config4_assembly_nearfield(device)
+        out, pts = res.pop("_out")
+        P, tot, ux, uy, dux, duy = ff.farfield(*out[:4], pts, pts, LAM,
+                                               out[7], device=device)
+        return out[0], ff.focal_metrics(P, ux, uy, dux, duy, tot, out[6],
+                                        spot_radius_u=0.15)
+    t0 = time.perf_counter()
+    got = {"cuda": config5("cuda")}
+    t_config5 = time.perf_counter() - t0
+    got["cpu"] = config5("cpu")
     for device, dtype in (("cuda", torch.complex64),
                           ("cpu", torch.complex128)):
         f = got[device][0]
@@ -870,6 +991,7 @@ def lens_phase(dev, results, path_launches, reset_counts, launch_counts):
                 and f.shape == (60, 60), f"config 5 near field on {device}: "
                 f"{f.device} {f.dtype} {tuple(f.shape)}")
     m, m_cpu = got["cuda"][1], got["cpu"][1]
+    config5_card = dict(m)
     errs = {k: abs(m[k] - v) for k, v in CONFIG5_JAX.items()}
     errs_cpu = {k: abs(m[k] - m_cpu[k]) for k in CONFIG5_JAX}
     print(f"phase 8a config 5 (radius 7.5 um, source 25 um, numG=20, 60x60 "
@@ -967,30 +1089,11 @@ def lens_phase(dev, results, path_launches, reset_counts, launch_counts):
     # the near field against CPU complex128 on three slabs of 8 columns:
     # the axis, the centre/periphery seam and the rim, from complex128
     # tables built on the CPU from the same database entries
-    card_tables = [(obj, obj.interpolators) for obj in (*gcs, hgs)]
-    for obj in (*gcs, hgs):
-        obj.build_interpolators(device="cpu")
-    fmax = [f.abs().max().item() for f in out[:4]]
-    slab_err, n_class = {}, {}
+    lens = dict(lps=lps, lcs=lcs, hgs=hgs, d=d, pts=pts)
+    slabs = (("axis", 0.0), ("seam", r_sw), ("rim", radius))
     t0 = time.perf_counter()
-    for name, y in (("axis", 0.0), ("seam", r_sw), ("rim", radius)):
-        c0 = int(np.argmin(np.abs(pts - y))) - 4
-        cols = slice(c0, c0 + 8)
-        ref = nf.build_nearfield(0.0, 0.0, -d, "x", LAM, lps, lcs, hgs, pts,
-                                 pts[cols], dipole_moment=1e-30,
-                                 device="cpu")
-        require(ref[0].dtype == torch.complex128, f"CPU slab {ref[0].dtype}")
-        slab_err[name] = max(
-            (f[:, cols].cpu().to(r.dtype) - r).abs().max().item() / fm
-            for f, r, fm in zip(out[:4], ref[:4], fmax))
-        cls = [classification(nf, lps, lcs, hgs, d, pts, pts[cols], dv)
-               for dv in (dev, "cpu")]
-        (g1, c1, r1, s1), (g2, c2, r2, s2) = cls
-        n_class[name] = int(((g1 != g2) | (c1 != c2)
-                             | ((r1 - r2).abs() > 1e-9)
-                             | (c1 & (s1 != s2))).sum())
-    for obj, tables in card_tables:
-        obj.interpolators = tables
+    with cpu_tables((*gcs, hgs)):
+        slab_err, n_class = nearfield_slabs(nf, lens, out, LAM, slabs, dev)
     slab_s = time.perf_counter() - t0
     print(f"phase 8b near field vs CPU complex128 ({slab_s:.1f} s), slabs "
           f"of 8 x {n} points, max |diff| over Ex, Ey, Hx, Hy "
@@ -1003,25 +1106,14 @@ def lens_phase(dev, results, path_launches, reset_counts, launch_counts):
     # the far field against farfield() in complex128 on the CPU, of the
     # card's near field copied to the host
     t0 = time.perf_counter()
-    Pr, totr, *_ = ff.farfield(*(f.cpu() for f in out[:4]), pts, pts, LAM,
-                               out[7], device="cpu")
-    mr = ff.focal_metrics(Pr, ux, uy, dux, duy, totr, out[6],
-                          spot_radius_u=0.1)
-    Pc = P.cpu().double()
-    fin = torch.isfinite(Pr)
-    require(bool((torch.isfinite(Pc) == fin).all()),
-            "8b far field: finite bins differ from the CPU's")
-    far_err = {"P": ((Pc - Pr)[fin].abs().max() / Pr[fin].max()).item(),
-               "total_P": abs(tot - totr) / totr}
-    for k in ("transmission", "spot_fraction_of_total"):
-        far_err[k] = abs(m[k] - mr[k]) / mr[k]
+    far_err = farfield_vs_cpu(ff, out, far, m, pts, LAM, 0.1, "8b")
     print(f"phase 8b far field vs CPU complex128 "
           f"({time.perf_counter() - t0:.1f} s): relative errors "
           f"{ {k: float(f'{v:.3e}') for k, v in far_err.items()} } (bound "
           f"{TOL_FARFIELD}; P as a share of its max)")
     require(max(far_err.values()) <= TOL_FARFIELD,
             f"8b far field vs CPU: {far_err}")
-    del far, P, Pr, Pc
+    del far, P
 
     # the kernels at the lens-characterize inputs: one periphery member
     # sweep (B = 25 directions) and one HexGridSet member sweep (B = 81)
@@ -1037,7 +1129,164 @@ def lens_phase(dev, results, path_launches, reset_counts, launch_counts):
                       "phase 8b")
     print(f"phase 8 lens check: {time.perf_counter() - t8:.2f} s")
     return dict(lps=lps, lcs=lcs, hgs=hgs, d=d, pts=pts, out=out,
-                xyrra=xyrra)
+                xyrra=xyrra, gcs=gcs, r_sw=r_sw, radius=radius,
+                config5=config5_card, t_config5=t_config5)
+
+
+def rgb_lens_phase(dev, lens, results, path_launches, reset_counts,
+                   launch_counts):
+    """Phase 8c: phase 8b's lens at benchmarks/northstar2.py's three
+    wavelengths.  Its brackets and HexGridSet are characterized at 450 and
+    650 nm as well (one joint sweep per member, appended to the 580 nm
+    data as the port's collimator demo does), the interpolators rebuilt,
+    the lens designed once, and at each wavelength the stitch on
+    northstar2's grid for that wavelength, the far field and the focal
+    metrics, held to CPU complex128 as 8b holds 580 nm."""
+    import importlib
+    import torch
+    from metalens_tpu_torch.assembly import make_design
+    from metalens_tpu_torch.engine import characterize_grating
+    from metalens_tpu_torch.solver import inv, taylor
+    nf = importlib.import_module("metalens_tpu_torch.nearfield")
+    ff = importlib.import_module("metalens_tpu_torch.farfield")
+    t8 = time.perf_counter()
+    deg = math.pi / 180
+    gcs, hgs, d, radius = (lens[k] for k in ("gcs", "hgs", "d", "radius"))
+    objs = (*gcs, hgs)
+    members = [g for gc in gcs for g in gc.grating_list]
+    lams = [450 * NM, 650 * NM]
+    want = sweep_launches(members + hgs.grating_list, lams)
+    tables_580 = [dict(obj.interpolators) for obj in objs]
+    # the centre's phase library stays 580 nm's, the design wavelength
+    # (characterize takes it at the first wavelength of its call)
+    x_amp_580 = hgs.x_amp_list
+    times = {}
+    reset_counts()
+    with stage(times, "characterize 4 collections"):
+        for gc in gcs:
+            gc.characterize(lams, numG=CHAR_NUMG, u_steps=5, append=True)
+    with stage(times, "characterize HexGridSet"):
+        hgs.characterize(wavelength=lams, numG=CHAR_NUMG, just_normal=False,
+                         u_steps=5, append=True)
+    c = launch_counts()
+    path_launches["characterize lens rgb"] = c
+    results["cinv"]["route_launches_by_path"]["characterize lens rgb"] = \
+        dict(inv.route_launches)
+    hgs.x_amp_list = x_amp_580
+    lams_nm = sorted({e["wavelength_in_nm"] for g in members + hgs.grating_list
+                      for e in g.data})
+    print(f"phase 8c characterize lens at 450 + 650 nm numG={CHAR_NUMG} "
+          f"u_steps=5 (appended; wavelengths now {lams_nm} nm): "
+          f"{len(members)} collection members and {len(hgs.grating_list)} "
+          f"HexGridSet members; launches {c} (expected {want})")
+    require(all(v > 0 for v in c.values()) and c == want,
+            f"characterize lens rgb: launches {c}, expected {want}")
+    require(lams_nm == [450, 580, 650], f"8c database wavelengths {lams_nm}")
+    with stage(times, "interpolators"):
+        for obj in objs:
+            obj.build_interpolators()
+    same = all(key in obj.interpolators
+               and torch.equal(obj.interpolators[key].values, f.values)
+               for obj, old in zip(objs, tables_580)
+               for key, f in old.items())
+    require(same, "8c: the 580 nm tables changed when 450/650 nm were "
+            "appended")
+    collections = [[(lo * deg, hi * deg), gc]
+                   for (lo, hi), gc in zip(NS_BRACKETS, gcs)]
+    with stage(times, "make_design"):
+        lps, lcs, r_sw = make_design(collections, d, radius, hgs)
+    require(r_sw == lens["r_sw"] and np.array_equal(lcs, lens["lcs"])
+            and np.array_equal(lps["r_center_list"],
+                               lens["lps"]["r_center_list"]),
+            "8c: the design differs from 8b's")
+    print(f"phase 8c design: {len(lps['r_center_list'])} rings, "
+          f"{len(lcs)} centre sites, r_switch {r_sw * 1e6:.2f} um (8b's)")
+
+    # the stitch, far field and focal metrics at each wavelength; the
+    # stitch and the far field run no cell solve, so none of the kernels
+    rgb = dict(lps=lps, lcs=lcs, hgs=hgs, d=d)
+    fields = {}
+    reset_counts()
+    for lam_nm in (450, 580, 650):
+        lam = lam_nm * NM
+        t_lam = {}
+        torch.cuda.reset_peak_memory_stats()
+        out, far, m = lens_metrics(nf, ff, lps, lcs, hgs, d, 1.02 * radius,
+                                   0.1, lam=lam, times=t_lam)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        n = len(out[4])
+        P, tot, ux, uy, dux, duy = far
+        print(f"phase 8c {lam_nm} nm: aperture {n} x {n} = {n * n} points; "
+              f"transmission {m['transmission']:.6f}, spot fraction (0.1) "
+              f"{m['spot_fraction_of_total']:.6f}, peak ({m['peak_ux']:.5f}, "
+              f"{m['peak_uy']:.5f}) (bin {dux:.5f} x {duy:.5f}), total_P "
+              f"{tot:.6e}, power through the lens {out[6]:.6e}; peak device "
+              f"memory {peak_gib:.2f} GiB; stage times (CUDA events ms, host "
+              f"ms): " + "; ".join(f"{k} {a:.1f}, {b:.1f}"
+                                   for k, (a, b) in t_lam.items()))
+        require(all(f.is_cuda and f.dtype == torch.complex64
+                    and f.shape == (n, n) and bool(torch.isfinite(f).all())
+                    for f in out[:4]), f"8c {lam_nm} nm near field: device, "
+                f"dtype, shape or non-finite values")
+        require(0 < m["transmission"] <= 1 and tot <= out[6],
+                f"8c {lam_nm} nm physics: {m}, total_P {tot}, through the "
+                f"lens {out[6]}")
+        if lam_nm == 580:
+            require(abs(m["peak_ux"]) <= dux and abs(m["peak_uy"]) <= duy,
+                    f"8c 580 nm peak ({m['peak_ux']}, {m['peak_uy']}) beyond "
+                    f"one bin ({dux}, {duy}) of (0, 0)")
+        fields[lam_nm] = (out, far, m)
+        times.update({f"{lam_nm} nm {k}": v for k, v in t_lam.items()})
+    c = launch_counts()
+    path_launches["lens check rgb"] = c
+    print(f"phase 8c launches of the three stitches and far fields: {c} "
+          f"(expected none)")
+    require(not any(c.values()), f"lens check rgb: launches {c}")
+
+    # each wavelength against CPU complex128: near-field slabs at the axis,
+    # the seam and the rim from complex128 tables built on the CPU, and the
+    # far field of the card's near field
+    slabs = (("axis", 0.0), ("seam", r_sw), ("rim", radius))
+    t0 = time.perf_counter()
+    with cpu_tables(objs):
+        for lam_nm, (out, far, m) in fields.items():
+            lam = lam_nm * NM
+            pts = out[4]
+            slab_err, n_class = nearfield_slabs(
+                nf, dict(rgb, pts=pts), out, lam, slabs, dev)
+            far_err = farfield_vs_cpu(ff, out, far, m, pts, lam, 0.1,
+                                      f"8c {lam_nm} nm")
+            print(f"phase 8c {lam_nm} nm vs CPU complex128: near field "
+                  f"(slabs of 8 x {len(pts)} points, max |diff| over Ex, "
+                  f"Ey, Hx, Hy as a share of each field's max) "
+                  f"{ {k: float(f'{v:.3e}') for k, v in slab_err.items()} } "
+                  f"(bound {TOL_NEARFIELD}), points classified differently "
+                  f"{n_class}; far field relative errors "
+                  f"{ {k: float(f'{v:.3e}') for k, v in far_err.items()} } "
+                  f"(bound {TOL_FARFIELD})")
+            require(max(slab_err.values()) <= TOL_NEARFIELD,
+                    f"8c {lam_nm} nm near field vs CPU: {slab_err}")
+            require(max(far_err.values()) <= TOL_FARFIELD,
+                    f"8c {lam_nm} nm far field vs CPU: {far_err}")
+    print(f"phase 8c vs CPU complex128: {time.perf_counter() - t0:.1f} s")
+    del fields, out, far
+
+    # the kernels at the joint 450/650 nm inputs: one periphery member
+    # sweep (B = 2 x 25) and one HexGridSet member sweep (B = 2 x 81)
+    peri = dict(collection_sweep(gcs[0], 5, CHAR_NUMG), wavelength=lams)
+    hexa = dict(ux_min=-0.499, ux_max=0.501, uy_min=-0.499, uy_max=0.501,
+                u_steps=9, wavelength=lams, numG=CHAR_NUMG)
+    runs = (lambda: characterize_grating(gcs[0].grating_list[0], **peri),
+            lambda: characterize_grating(hgs.grating_list[0], **hexa))
+    inv_caps = [a for run in runs for (a,) in capture(inv, "inv", run)]
+    tay_caps = [c for run in runs
+                for c in capture(taylor, "taylor_factors", run)]
+    kernels_at_inputs(dev, results, inv_caps, tay_caps,
+                      "characterize lens rgb", "phase 8c")
+    print(f"phase 8c stage times (CUDA events ms, host ms): "
+          + "; ".join(f"{k} {a:.1f}, {b:.1f}" for k, (a, b) in times.items()))
+    print(f"phase 8c lens check at 450, 580 and 650 nm: "
+          f"{time.perf_counter() - t8:.2f} s")
 
 
 def rgb_terms():
@@ -2114,6 +2363,184 @@ def demo_phase():
           f"transmission {t580:.3f} >= 0.75")
 
 
+# ---- phase 12: benchmarks/run_configs.py configs 1-4 through the port ----
+
+def _seeded():
+    """``random`` and ``numpy.random`` seeded to 0, as for the JAX run of
+    each config (CONFIGS_JAX)."""
+    import random
+    random.seed(0)
+    np.random.seed(0)
+
+
+def config1_hex_phase_sweep():
+    """run_configs.py config1_hex_phase_sweep at --scale small."""
+    from metalens_tpu_torch import HexGridSet
+    hgs = HexGridSet(sep=320 * NM, cyl_height=H, num_entries=8)
+    hgs.characterize(wavelength=LAM, numG=30, just_normal=True)
+    phases = np.unwrap(np.angle(hgs.x_amp_list))
+    return dict(phase_span_rad=float(abs(phases[-1] - phases[0]))), (
+        lambda: hgs.grating_list[0].characterize(
+            wavelength=LAM, numG=30, just_normal=True))
+
+
+def config2_optimize_rgb():
+    """run_configs.py config2_optimize_rgb at --scale small (numG = 25,
+    25 gradient steps, then optimize2 with 5 attempts), with the FOM after
+    optimize_gradient as well."""
+    from metalens_tpu_torch import Grating
+    from metalens_tpu_torch.engine import fom_value_and_grad
+    from metalens_tpu_torch.optimize import optimize_gradient, optimize2
+    from metalens_tpu_torch.solver.fom import FomTerm
+    terms = [FomTerm(650 * NM, 1.0, -1, False), FomTerm(LAM, 1.0, -1, True),
+             FomTerm(500 * NM, 1.0, -1, False)]
+    g = Grating(lateral_period=320 * NM, cyl_height=H, target_wavelength=LAM,
+                angle_in_air=30 * math.pi / 180,
+                xyrra_list_in_nm_deg=np.array([[0., 0., 120., 90., 0.],
+                                               [500., 10., 80., 110., 5.]]))
+    kw = dict(target_wavelength=LAM, numG=25, terms=terms)
+    f0 = g.fom(**kw)
+    g_opt = optimize_gradient(g, steps=25, verbose=False, **kw)
+    f_grad = g_opt.fom(**kw)
+    g_opt = optimize2(g_opt, attempts=5, verbose=False, **kw)
+    out = dict(fom_start=f0, fom_after_gradient=f_grad, fom_end=g_opt.fom(**kw))
+    return out, lambda: fom_value_and_grad(g, **kw)(g.xyrra_list)
+
+
+def config3_vary_angle_characterize():
+    """run_configs.py config3_vary_angle_characterize at --scale small
+    (numG = 20, to 29.4 deg, 8 gradient steps and 2 optimize2 attempts a
+    member; the database at numG = 40, u_steps = 5), with each member's
+    FOM as well."""
+    from metalens_tpu_torch import Grating
+    from metalens_tpu_torch.engine import characterize_grating
+    from metalens_tpu_torch.optimize import vary_angle
+    from metalens_tpu_torch.solver.fom import FomTerm
+    terms = [FomTerm(LAM, 1.0, -1, True)]
+    g0 = Grating(lateral_period=320 * NM, cyl_height=H, target_wavelength=LAM,
+                 angle_in_air=30 * math.pi / 180,
+                 xyrra_list_in_nm_deg=np.array([[0., 0., 110., 90., 0.]]))
+    gc = vary_angle(start_grating=g0, end_angle=29.4 * math.pi / 180,
+                    lens_type="cyl", target_wavelength=LAM, numG=20,
+                    terms=terms, use_gradient=True, gradient_steps=8,
+                    optimize2_attempts=2, verbose=False)
+    gc.characterize(LAM, numG=40, u_steps=5)
+    gc.build_interpolators()
+    out = dict(members=len(gc.grating_list),
+               db_entries=sum(len(g.data) for g in gc.grating_list),
+               member_foms=[g.fom(LAM, numG=20, terms=terms)
+                            for g in gc.grating_list])
+    sweep = dict(collection_sweep(gc, 5, 40), wavelength=LAM)
+    return out, lambda: characterize_grating(gc.grating_list[-1], **sweep)
+
+
+def config4_assembly_nearfield(device="cuda"):
+    """run_configs.py config4_assembly_nearfield at --scale small (radius
+    7.5 um, source 25 um, numG = 20), with this script's round_collection
+    in place of tests/test_full_lens.py::make_round_collection.  As there,
+    "_out" carries the near field (and its points) to config 5."""
+    import importlib
+    from metalens_tpu_torch import HexGridSet
+    from metalens_tpu_torch.assembly import make_design
+    from metalens_tpu_torch.geometry import good_fft_number
+    nf = importlib.import_module("metalens_tpu_torch.nearfield")
+    deg = math.pi / 180
+    d, radius = 25e-6, 7.5e-6
+    gc = round_collection(8.0, math.degrees(math.atan(radius / d)) + 1)
+    gc.characterize(wavelength=LAM, numG=20, u_steps=3, device=device)
+    gc.build_interpolators(device=device)
+    hgs = HexGridSet(sep=320 * NM, cyl_height=H, num_entries=5)
+    hgs.characterize(wavelength=LAM, numG=20, just_normal=False, u_steps=3,
+                     device=device)
+    hgs.build_interpolators(device=device)
+    lps, lcs, r_switch, xyrra = make_design(
+        [[(8.0 * deg, math.atan(radius / d) + 1 * deg), gc]], d, radius, hgs,
+        make_xyrra_list=True)
+    half = radius * 1.05
+    n_pts = good_fft_number(2 * half / (LAM / 2.2))
+    x_pts = np.linspace(-half, half, n_pts)
+    out = nf.build_nearfield(0.0, 0.0, -d, "x", LAM, lps, lcs, hgs, x_pts,
+                             x_pts, dipole_moment=1e-30, device=device)
+    return (dict(pillars=int(xyrra.shape[0]), aperture_pts=n_pts * n_pts,
+                 _out=(out, x_pts)),
+            lambda: hgs.grating_list[0].characterize(
+                wavelength=LAM, numG=20, just_normal=False, ux_min=-0.499,
+                ux_max=0.501, uy_min=-0.499, uy_max=0.501, u_steps=5,
+                device=device))
+
+
+def configs_phase(dev, lens, results, path_launches, reset_counts,
+                  launch_counts):
+    """Phase 12: benchmarks/run_configs.py configs 1-4 at --scale small
+    through the port on the card, each seeded as the JAX run was and held
+    to the JAX package's values (CONFIGS_JAX); config 5 is phase 8a."""
+    import torch
+    from metalens_tpu_torch.solver import inv, taylor
+    t12 = time.perf_counter()
+    runs = {1: config1_hex_phase_sweep, 2: config2_optimize_rgb,
+            3: config3_vary_angle_characterize,
+            4: config4_assembly_nearfield}
+    inv_caps, tay_caps = [], []
+    for k, run in runs.items():
+        _seeded()
+        reset_counts()
+        t0 = time.perf_counter()
+        got, one_call = run()
+        wall = time.perf_counter() - t0
+        near = got.pop("_out", None)
+        c = launch_counts()
+        path_launches[f"config {k}"] = c
+        want = CONFIGS_JAX[k]
+        print(f"phase 12 config {k} on the card: {wall:.2f} s, launches "
+              f"{c}; port {got}; JAX package (CPU, float32) {want}")
+        require(all(v > 0 for v in c.values()),
+                f"config {k}: a kernel did not launch: {c}")
+        if k == 1:
+            err = abs(got["phase_span_rad"] - want["phase_span_rad"])
+            require(err <= TOL_CONFIG1, f"config 1 phase span: |diff| {err}")
+        elif k == 2:
+            errs = {key: abs(got[key.replace("_same_draws", "")] - v)
+                    for key, v in want.items()}
+            print(f"phase 12 config 2 |port - JAX| "
+                  f"{ {key: float(f'{e:.3e}') for key, e in errs.items()} } "
+                  f"(bounds {TOL_CONFIG2})")
+            require(all(errs[key] <= TOL_CONFIG2[key] for key in errs)
+                    and got["fom_end"] >= got["fom_after_gradient"],
+                    f"config 2: {got} against {want}")
+        elif k == 3:
+            errs = [abs(a - b) for a, b in zip(got["member_foms"],
+                                               want["member_foms"])]
+            print(f"phase 12 config 3 member FOMs |port - JAX| "
+                  f"{[float(f'{e:.3e}') for e in errs]} (bound "
+                  f"{TOL_CONFIG3_FOM})")
+            require(got["members"] == want["members"]
+                    and got["db_entries"] == want["db_entries"]
+                    and max(errs) <= TOL_CONFIG3_FOM,
+                    f"config 3: {got} against {want}")
+        else:
+            out, n = near[0], len(near[1])
+            require(all(f.is_cuda and f.dtype == torch.complex64
+                        and f.shape == (n, n)
+                        and bool(torch.isfinite(f).all()) for f in out[:4]),
+                    "config 4 near field: device, dtype, shape or non-finite "
+                    "values")
+            require(got == want, f"config 4: {got} against {want}")
+        # the kernels at one call of the config's path (not counted; the
+        # gradient's inputs detached: the raw kernels are forward-only)
+        inv_caps += [a.detach() for (a,) in capture(inv, "inv", one_call)]
+        tay_caps += [tuple(x.detach() if torch.is_tensor(x) else x
+                           for x in c)
+                     for c in capture(taylor, "taylor_factors", one_call)]
+    kernels_at_inputs(dev, results, inv_caps, tay_caps, "configs 1-4",
+                      "phase 12", numG=None)
+    m = lens["config5"]
+    print(f"phase 12 config 5 (phase 8a, not rerun): {lens['t_config5']:.2f} "
+          f"s on the card, transmission {m['transmission']:.6f}, spot "
+          f"fraction {m['spot_fraction_of_total']:.6f}; JAX package "
+          f"{CONFIG5_JAX}")
+    print(f"phase 12 configs: {time.perf_counter() - t12:.2f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2707,6 +3134,8 @@ def main():
     # ---- phase 8: the lens check ----------------------------------------
     lens = lens_phase(dev, results, path_launches, reset_counts,
                       launch_counts)
+    rgb_lens_phase(dev, lens, results, path_launches, reset_counts,
+                   launch_counts)
 
     # ---- phase 9: the fused design loop ----------------------------------
     fused_phase(dev, results, path_launches, reset_counts, launch_counts)
@@ -2719,6 +3148,10 @@ def main():
     physics_phase(dev, results, path_launches, reset_counts, launch_counts)
     export_phase(lens)
     demo_phase()
+
+    # ---- phase 12: run_configs.py configs 1-4 through the port ----------
+    configs_phase(dev, lens, results, path_launches, reset_counts,
+                  launch_counts)
 
     # launches: the sum over the counted runs of each path
     kernels = [dict(name=name,

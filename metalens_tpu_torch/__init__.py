@@ -40,3 +40,11 @@ from .nearfield import build_nearfield  # noqa: F401
 # the same name: reach the module by ``from metalens_tpu_torch.farfield
 # import ...`` or importlib
 from .farfield import farfield, focal_metrics  # noqa: F401
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "units", "materials", "geometry", "nm", "um", "degree",
+    "Grating", "GratingCollection", "validate", "resize",
+    "min_diameter", "min_distance",
+]

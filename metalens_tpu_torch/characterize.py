@@ -34,7 +34,7 @@ class AmpInterpolator:
     the CPU).
 
     ``__call__`` with an (M, ndim) array returns (M,) host numpy complex;
-    :meth:`on_device` returns the (M,) complex tensor on the table's device.
+    :meth:`pair` returns the (M,) complex tensor on the table's device.
     Queries are clamped to the grid (callers check ``interpolator_bounds``
     first); length-1 axes behave as constants."""
 
@@ -50,12 +50,12 @@ class AmpInterpolator:
             values, dtype=cpx.complex_dtype(device), device=device)
 
     def __call__(self, pts):
-        return self.on_device(pts).cpu().numpy()
+        return self.pair(pts).cpu().numpy()
 
-    def on_device(self, pts) -> torch.Tensor:
+    def pair(self, pts) -> torch.Tensor:
         """The interpolated values at ``pts`` ((M, ndim) or (ndim,)) as an
-        (M,) complex tensor on the table's device: the counterpart of the
-        JAX version's ``pair``, for code that stays on the device."""
+        (M,) complex tensor on the table's device, for code that stays on
+        the device (the JAX version returns its (re, im) pair)."""
         pts = torch.as_tensor(pts, dtype=torch.float64,
                               device=self.values.device)
         if pts.ndim == 1:

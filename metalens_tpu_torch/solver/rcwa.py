@@ -341,14 +341,16 @@ def _medium_blocks(Kx, Ky, eps, branch_eps):
 
 
 def layer_smatrix(E, Kx, Ky, k0h, n_slabs: int, taylor_terms: int,
-                  branch_eps: float = 1e-9,
+                  eps_ref=EPS_REF, branch_eps: float = 1e-9,
                   M_blocks=None, hermitian_eps: bool = True,
                   Einv=None) -> SMatrix:
     """S-matrix of the patterned layer of normalized thickness ``k0h`` (a
-    number or a (B,) tensor) in the ``EPS_REF`` plane-wave basis on both
-    faces.  ``hermitian_eps=False`` (absorbing pillars) inverts E by the
-    pivoted solve.  A caller that sweeps many incidence directions over
-    one geometry passes the direction-independent ``Einv``."""
+    number or a (B,) tensor) in the plane-wave basis of the uniform
+    ``eps_ref`` medium (a real or complex number, by default the lossy
+    ``EPS_REF``) on both faces.  ``hermitian_eps=False`` (absorbing
+    pillars) inverts E by the pivoted solve.  A caller that sweeps many
+    incidence directions over one geometry passes the
+    direction-independent ``Einv``."""
     if n_slabs & (n_slabs - 1) or n_slabs < 1:
         raise ValueError(f"n_slabs must be a power of two (doubling "
                          f"assembly), got {n_slabs}")
@@ -357,7 +359,7 @@ def layer_smatrix(E, Kx, Ky, k0h, n_slabs: int, taylor_terms: int,
     F, G = build_FG(E, Einv, Kx, Ky, M_blocks)
     t = k0h / n_slabs
     T = thin_slab_T_blocks(F.contiguous(), G.contiguous(), t, taylor_terms)
-    we, we_inv = _medium_blocks(Kx, Ky, EPS_REF, branch_eps)
+    we, we_inv = _medium_blocks(Kx, Ky, eps_ref, branch_eps)
     S = slab_smatrix_in_basis(T, we, we_inv)
     for _ in range(int(math.log2(n_slabs))):
         S = redheffer_star_self_symmetric(S)

@@ -220,7 +220,7 @@ def test_interpolator_tables_match_jax(collections, hexgrids, kind):
             np.testing.assert_allclose(
                 got, np.asarray(want.re[0]) + 1j * np.asarray(want.im[0]),
                 rtol=0, atol=1e-12)
-            assert f.on_device(pts[0]).shape == (1,)
+            assert f.pair(pts[0]).shape == (1,)
 
 
 def test_interp_weights_and_gather_match_jax():
@@ -255,6 +255,24 @@ def test_interp_weights_and_gather_match_jax():
     f = tchar.AmpInterpolator((np.array([0.5]), np.array([0.0, 1.0])),
                               np.array([[1 + 1j, 3 + 3j]]), device="cpu")
     assert abs(f(np.array([[123.0, 0.5]]))[0] - (2 + 2j)) < 1e-12
+
+
+def test_pair_matches_jax():
+    """AmpInterpolator.pair on a 3-d table (one degenerate axis), against
+    the JAX method's (re, im) pair by an eager call: an (M,) complex
+    tensor on the table's device, clamped outside the grid."""
+    rng = np.random.default_rng(7)
+    grids = (np.sort(rng.random(5)), np.array([0.3]),
+             np.cumsum(rng.random(4) + 0.2))
+    vals = rng.normal(size=(5, 1, 4)) + 1j * rng.normal(size=(5, 1, 4))
+    pts = np.stack([rng.random(40) * 1.4 - 0.2, rng.random(40),
+                    rng.random(40) * 3.0], axis=1)
+    got = tchar.AmpInterpolator(grids, vals, device="cpu").pair(pts)
+    want = jchar.AmpInterpolator(grids, vals).pair(pts)
+    assert got.dtype == torch.complex128 and got.shape == (40,)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(want.re) + 1j * np.asarray(want.im),
+        rtol=0, atol=1e-12)
 
 
 @pytest.mark.parametrize("kind", ["collection", "hexgrid"])

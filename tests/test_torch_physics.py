@@ -194,6 +194,28 @@ def _parity_eig_reference():
         close(a, b, tol=1e-10)
 
 
+def _parity_layer_smatrix(eps_ref):
+    """A rectangle layer's doubled S-matrix in the eps_ref basis (``None``:
+    the default, the lossy EPS_REF), at an incidence whose orders keep
+    0.1 from the light cone of every medium involved."""
+    orders = ordmod.select_orders(LX, LY, 9)
+    Kx = 0.31 + orders[:, 0] * LAM / LX
+    Ky = 0.12 + orders[:, 1] * LAM / LY
+    for eps in (1.0, NG ** 2, 2.25):
+        assert np.abs(Kx ** 2 + Ky ** 2 - eps).min() > 0.1
+    rect = (orders, LX, LY, (30 * NM, 0.0), (600 * NM, 200 * NM), 5.6)
+    E = epsilon.rect_layer_toeplitz(*rect, device="cpu")
+    k0h, n_slabs, terms = 2 * np.pi * H / LAM, 4, 16
+    kw = {} if eps_ref is None else {"eps_ref": eps_ref}
+    got = rcwa.layer_smatrix(E[None], t64(Kx)[None], t64(Ky)[None], k0h,
+                             n_slabs, terms, **kw)
+    want = jrcwa.layer_smatrix(jepsilon.rect_layer_toeplitz(*rect), Kx, Ky,
+                               k0h, n_slabs, terms, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.complex128
+        close(a[0], jcpx.to_np(b), tol=1e-10)
+
+
 PARITY = {"j1_over_x": _parity_j1, "sp_to_xy_coefficients": _parity_sp_to_xy,
           "backward_order_powers": _parity_backward_powers,
           "eps_fourier": _parity_eps_fourier,
@@ -201,7 +223,10 @@ PARITY = {"j1_over_x": _parity_j1, "sp_to_xy_coefficients": _parity_sp_to_xy,
           "transfer_star_scatter": _parity_transfer_and_star,
           "interface_and_slab": _parity_interface_and_slab,
           "schedule": _parity_schedule,
-          "reference_cell_smatrix": _parity_eig_reference}
+          "reference_cell_smatrix": _parity_eig_reference,
+          "layer_smatrix_default_ref":
+              lambda: _parity_layer_smatrix(None),
+          "layer_smatrix_real_ref": lambda: _parity_layer_smatrix(2.25)}
 
 
 @pytest.mark.parametrize("name", sorted(PARITY))
