@@ -207,6 +207,26 @@ def require(ok, what):
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+def reset_counts():
+    """Clear the port's trace registry: the kernels' launch counters with
+    the rest."""
+    from metalens_tpu_torch import trace
+    trace.reset()
+
+
+def launch_counts():
+    """Launches of each hand-written kernel since :func:`reset_counts`
+    (the trace registry records while :func:`main` runs)."""
+    from metalens_tpu_torch import _cuda
+    return _cuda.launch_counts()
+
+
+def route_counts():
+    """The inverse's launches since :func:`reset_counts` by route."""
+    from metalens_tpu_torch import _cuda
+    return _cuda.route_counts()
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -602,8 +622,7 @@ def kernels_at_inputs(dev, results, inv_caps, tay_caps, path, label,
     return worst, tay_worst, t_values
 
 
-def characterize_phase(dev, gd, results, path_launches, reset_counts,
-                       launch_counts):
+def characterize_phase(dev, gd, results, path_launches):
     """Phase 7: the amplitude databases on the card at numG = 100."""
     import torch
     from metalens_tpu_torch import (GratingCollection, HexGridSet, resize,
@@ -645,8 +664,7 @@ def characterize_phase(dev, gd, results, path_launches, reset_counts,
         c = launch_counts()
         want = sweep_launches(glist, lams)
         path_launches[label] = c
-        results["cinv"]["route_launches_by_path"][label] = dict(
-            inv.route_launches)
+        results["cinv"]["route_launches_by_path"][label] = route_counts()
         sweeps[label] = wall
         print(f"phase 7 {label} numG={CHAR_NUMG} u_steps=5 ({n_dir} "
               f"directions, B={cells} per member): {len(glist)} members in "
@@ -686,8 +704,8 @@ def characterize_phase(dev, gd, results, path_launches, reset_counts,
     c = launch_counts()
     want = sweep_launches(hgs.grating_list, [LAM])
     path_launches["characterize hexgrid"] = c
-    results["cinv"]["route_launches_by_path"]["characterize hexgrid"] = dict(
-        inv.route_launches)
+    results["cinv"]["route_launches_by_path"]["characterize hexgrid"] = \
+        route_counts()
     require(all(v > 0 for v in c.values()) and c == want,
             f"HexGridSet launches {c}, expected {want}")
     xa = hgs.x_amp_list
@@ -956,7 +974,7 @@ def farfield_vs_cpu(ff, out, far, m, pts, lam, spot_u, what):
     return far_err
 
 
-def lens_phase(dev, results, path_launches, reset_counts, launch_counts):
+def lens_phase(dev, results, path_launches):
     """Phase 8: the lens check on the card -- characterized databases,
     assembly, the near-field stitch, the far field and the focal metrics."""
     import importlib
@@ -1026,8 +1044,8 @@ def lens_phase(dev, results, path_launches, reset_counts, launch_counts):
                          u_steps=5)
     c = launch_counts()
     path_launches["characterize lens"] = c
-    results["cinv"]["route_launches_by_path"]["characterize lens"] = dict(
-        inv.route_launches)
+    results["cinv"]["route_launches_by_path"]["characterize lens"] = \
+        route_counts()
     batches = ([len({(e["ux"], e["uy"]) for e in g.data}) for g in members]
                + [len({(e["ux"], e["uy"]) for e in g.data})
                   for g in hgs.grating_list])
@@ -1133,8 +1151,7 @@ def lens_phase(dev, results, path_launches, reset_counts, launch_counts):
                 config5=config5_card, t_config5=t_config5)
 
 
-def rgb_lens_phase(dev, lens, results, path_launches, reset_counts,
-                   launch_counts):
+def rgb_lens_phase(dev, lens, results, path_launches):
     """Phase 8c: phase 8b's lens at benchmarks/northstar2.py's three
     wavelengths.  Its brackets and HexGridSet are characterized at 450 and
     650 nm as well (one joint sweep per member, appended to the 580 nm
@@ -1171,7 +1188,7 @@ def rgb_lens_phase(dev, lens, results, path_launches, reset_counts,
     c = launch_counts()
     path_launches["characterize lens rgb"] = c
     results["cinv"]["route_launches_by_path"]["characterize lens rgb"] = \
-        dict(inv.route_launches)
+        route_counts()
     hgs.x_amp_list = x_amp_580
     lams_nm = sorted({e["wavelength_in_nm"] for g in members + hgs.grating_list
                       for e in g.data})
@@ -1349,7 +1366,7 @@ def fused_spies(fused, rec):
         fused._fom_eval, fused._cd_run, fused._rp_run = orig
 
 
-def fused_phase(dev, results, path_launches, reset_counts, launch_counts):
+def fused_phase(dev, results, path_launches):
     """Phase 9: the fused design loop on the card at the production design
     config (5 pillars, 19.7 deg, the RGB terms, numG = 50)."""
     import importlib
@@ -1633,8 +1650,7 @@ def capture_kernels(run):
             [tuple(det(x) for x in c) for c in tay])
 
 
-def parallel_phase(dev, results, path_launches, reset_counts, launch_counts,
-                   gd, gc7, lens):
+def parallel_phase(dev, results, path_launches, gd, gc7, lens):
     """Phase 10: the sharded paths of metalens_tpu_torch.parallel at full
     width through a one-rank NCCL process group on the card, each held to
     the unsharded port call on the same card and timed beside it."""
@@ -1650,7 +1666,7 @@ def parallel_phase(dev, results, path_launches, reset_counts, launch_counts,
     from metalens_tpu_torch.materials import resolve_indices
     from metalens_tpu_torch.parallel import dryrun
     from metalens_tpu_torch.parallel.mesh import Mesh
-    from metalens_tpu_torch.solver import inv, orders as ordmod
+    from metalens_tpu_torch.solver import orders as ordmod
     nf = importlib.import_module("metalens_tpu_torch.nearfield")
     ff = importlib.import_module("metalens_tpu_torch.farfield")
     fused = importlib.import_module("metalens_tpu_torch.optimize_fused")
@@ -1701,8 +1717,7 @@ def parallel_phase(dev, results, path_launches, reset_counts, launch_counts,
             c = launch_counts()
             label = f"sharded fom+grad numG={numG} B={B}"
             path_launches[label] = c
-            results["cinv"]["route_launches_by_path"][label] = dict(
-                inv.route_launches)
+            results["cinv"]["route_launches_by_path"][label] = route_counts()
             print(f"phase 10a {label} ({T} terms, {n_s} slabs, {n_t} "
                   f"Taylor terms): mean fom {fom.item():.7f}; launches {c} "
                   f"(expected {want}: the forward's); peak device memory "
@@ -1795,8 +1810,7 @@ def parallel_phase(dev, results, path_launches, reset_counts, launch_counts,
             c = launch_counts()
             label = f"sharded characterize numG={CHAR_NUMG} B={len(cells)}"
             path_launches[label] = c
-            results["cinv"]["route_launches_by_path"][label] = dict(
-                inv.route_launches)
+            results["cinv"]["route_launches_by_path"][label] = route_counts()
             require(c == want and all(v > 0 for v in c.values()),
                     f"10b launches {c}, expected {want}")
             require(ampf.dtype == torch.complex64 and ampf.shape == (
@@ -1945,8 +1959,7 @@ def parallel_phase(dev, results, path_launches, reset_counts, launch_counts,
             c = launch_counts()
             label = f"sharded member design numG={NS2_DESIGN_NUMG}"
             path_launches[label] = c
-            results["cinv"]["route_launches_by_path"][label] = dict(
-                inv.route_launches)
+            results["cinv"]["route_launches_by_path"][label] = route_counts()
             batches = len(rec["batches"])
             want = {k: v * batches for k, v in per_batch.items()}
             g_alone, f_alone = member_alone()
@@ -2190,7 +2203,7 @@ def _fmt_times(times):
                      for k, (a, b) in times.items())
 
 
-def physics_phase(dev, results, path_launches, reset_counts, launch_counts):
+def physics_phase(dev, results, path_launches):
     """Phase 11a: the physics checks on the card in complex64 (both
     kernels) against the oracles, each also through the port in complex128
     on the CPU; launches against the schedule; the kernels against their
@@ -2469,8 +2482,7 @@ def config4_assembly_nearfield(device="cuda"):
                 device=device))
 
 
-def configs_phase(dev, lens, results, path_launches, reset_counts,
-                  launch_counts):
+def configs_phase(dev, lens, results, path_launches):
     """Phase 12: benchmarks/run_configs.py configs 1-4 at --scale small
     through the port on the card, each seeded as the JAX run was and held
     to the JAX package's values (CONFIGS_JAX); config 5 is phase 8a."""
@@ -2542,12 +2554,20 @@ def configs_phase(dev, lens, results, path_launches, reset_counts,
 
 
 def main():
+    """Every phase, with the port's trace registry recording (the launch
+    counters and the build spans are read from it)."""
+    sys.path.insert(0, REPO)
+    from metalens_tpu_torch import trace
+    with trace.collect():
+        run_phases()
+
+
+def run_phases():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels "
                          "run only on an NVIDIA GPU")
-    sys.path.insert(0, REPO)
-    from metalens_tpu_torch import _cuda
+    from metalens_tpu_torch import _cuda, trace
     from metalens_tpu_torch.engine import fom_batch_fn
     from metalens_tpu_torch.grating import Grating
     from metalens_tpu_torch.solver import inv, orders as ordmod, rcwa, taylor
@@ -2569,8 +2589,11 @@ def main():
         list(pool.map(_cuda.build, ("cinv", "taylor")))
     _cuda.load("cinv", inv._SIGNATURES)
     _cuda.load("taylor", taylor._SIGNATURES)
+    builds = {k.rsplit(".", 1)[1]: v["host_ms"] / 1e3
+              for k, v in trace.snapshot()["spans"].items()
+              if k.startswith("cuda.build.")}
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s "
-          f"({', '.join(f'{k} {v:.2f} s' for k, v in _cuda.build_seconds.items())}"
+          f"({', '.join(f'{k} {v:.2f} s' for k, v in builds.items())}"
           f"; nvcc {' '.join(_cuda.NVCC_FLAGS)})")
 
     rng = np.random.default_rng(0)
@@ -2790,15 +2813,6 @@ def main():
     # ---- phase 4: the main path at numG = 50 (the bench cell, B = 1024)
     # and numG = 100 (B = 256), complex64, each driven once with every
     # launch count set to 0 just before it and read just after it
-    def reset_counts():
-        inv.launches = taylor.launches = taylor.chunk_launches = 0
-        for route in inv.route_launches:
-            inv.route_launches[route] = 0
-
-    def launch_counts():
-        return {"cinv": inv.launches, "taylor": taylor.launches,
-                "taylor_chunks": taylor.chunk_launches}
-
     path_launches, path_routes = {}, {}
     amps = {}
     for G, run, B, sched in ((numG, main_path, BATCH, (ns, terms)),
@@ -2807,10 +2821,9 @@ def main():
         reset_counts()
         af, ar, _, _ = run()
         torch.cuda.synchronize()
-        counts = {"cinv": inv.launches, "taylor": taylor.launches,
-                  "taylor_chunks": taylor.chunk_launches}
+        counts = launch_counts()
         path_launches[label] = counts
-        path_routes[label] = dict(inv.route_launches)
+        path_routes[label] = route_counts()
         print(f"phase 4 main path {label} B={B} schedule={sched}: launches "
               f"{counts}, inverse routes {path_routes[label]}")
         require(all(v > 0 for v in counts.values()),
@@ -2923,8 +2936,7 @@ def main():
                                              180 / np.pi])
     reset_counts()
     f_gpu = g.fom(target_wavelength=LAM, numG=numG)
-    require(inv.launches > 0 and taylor.launches > 0
-            and taylor.chunk_launches > 0,
+    require(all(v > 0 for v in launch_counts().values()),
             "Grating.fom on CUDA launched no kernel")
     f_cpu = g.fom(target_wavelength=LAM, numG=numG, device="cpu")
     print(f"phase 5 Grating.fom numG={numG}: cuda {f_gpu:.6f}, "
@@ -2942,13 +2954,11 @@ def main():
     require(fb_err <= TOL_GUARD, f"fom_batch_fn cuda vs cpu: {fb_err}")
 
     # ---- phase 6: the design loop on the card ---------------------------
-    import importlib
     from metalens_tpu_torch import (GratingCollection, fom_value_and_grad,
                                     optimize_gradient, resize, validate,
                                     vary_angle)
     from metalens_tpu_torch.engine import fom_of_grating, static_solve_config
     from metalens_tpu_torch.solver.fom import DEFAULT_FOM_TERMS
-    opt_module = importlib.import_module("metalens_tpu_torch.optimize")
     t6 = time.perf_counter()
     gen6 = torch.Generator(device=dev).manual_seed(6)
 
@@ -3010,8 +3020,7 @@ def main():
     reset_counts()
     f_gpu, g_gpu = vg(gd.xyrra_list)
     torch.cuda.synchronize()
-    counts = {"cinv": inv.launches, "taylor": taylor.launches,
-              "taylor_chunks": taylor.chunk_launches}
+    counts = launch_counts()
     path_launches["fom_value_and_grad numG=50"] = counts
     print(f"phase 6 fom_value_and_grad numG={numG} ({n_fom} terms, schedule "
           f"{n_s} slabs, {n_t} Taylor terms): launches {counts}, expected "
@@ -3100,14 +3109,14 @@ def main():
     # 6.5: one vary_angle member (cyl, derivative-free, 20 optimize2
     # attempts); end_angle between the first and the second rung
     rung = [math.asin(LAM / (LX * 1.01 ** k)) for k in (1, 2)]
-    opt_module.probe_batches = 0
+    reset_counts()
     t0 = time.perf_counter()
     gc = vary_angle(gd, sum(rung) / 2, "cyl", LAM, numG=numG,
                     optimize2_attempts=20, verbose=False,
                     rng=np.random.default_rng(3))
     torch.cuda.synchronize()
     vary_s = time.perf_counter() - t0
-    batches = opt_module.probe_batches
+    batches = trace.snapshot()["counters"].get("optimize.probe_batches", 0)
     require(len(gc.grating_list) == 2, f"vary_angle made "
             f"{len(gc.grating_list) - 1} members, expected 1")
     member = gc.grating_list[-1]
@@ -3128,30 +3137,25 @@ def main():
     print(f"phase 6 design loop: {time.perf_counter() - t6:.2f} s")
 
     # ---- phase 7: the amplitude databases at numG = 100 -----------------
-    gc7 = characterize_phase(dev, gd, results, path_launches, reset_counts,
-                             launch_counts)
+    gc7 = characterize_phase(dev, gd, results, path_launches)
 
     # ---- phase 8: the lens check ----------------------------------------
-    lens = lens_phase(dev, results, path_launches, reset_counts,
-                      launch_counts)
-    rgb_lens_phase(dev, lens, results, path_launches, reset_counts,
-                   launch_counts)
+    lens = lens_phase(dev, results, path_launches)
+    rgb_lens_phase(dev, lens, results, path_launches)
 
     # ---- phase 9: the fused design loop ----------------------------------
-    fused_phase(dev, results, path_launches, reset_counts, launch_counts)
+    fused_phase(dev, results, path_launches)
 
     # ---- phase 10: the sharded paths through a NCCL process group -------
-    parallel_phase(dev, results, path_launches, reset_counts, launch_counts,
-                   gd, gc7, lens)
+    parallel_phase(dev, results, path_launches, gd, gc7, lens)
 
     # ---- phase 11: physics checks, native export, the demo --------------
-    physics_phase(dev, results, path_launches, reset_counts, launch_counts)
+    physics_phase(dev, results, path_launches)
     export_phase(lens)
     demo_phase()
 
     # ---- phase 12: run_configs.py configs 1-4 through the port ----------
-    configs_phase(dev, lens, results, path_launches, reset_counts,
-                  launch_counts)
+    configs_phase(dev, lens, results, path_launches)
 
     # launches: the sum over the counted runs of each path
     kernels = [dict(name=name,

@@ -17,8 +17,9 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
+
+from . import trace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -27,7 +28,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
-build_seconds: dict[str, float] = {}
 
 
 def nvcc() -> str:
@@ -51,19 +51,19 @@ def library_path(name: str) -> Path:
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    """Compile ``csrc/<name>.cu`` unless its library is already built
+    (the compile is the span ``cuda.build.<name>``)."""
     out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with trace.span(f"cuda.build.{name}"):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
     os.replace(tmp, out)          # atomic: concurrent builders agree
-    build_seconds[name] = time.perf_counter() - t0
     return out
 
 
@@ -86,3 +86,21 @@ def check(status: int, what: str) -> None:
     """Raise if a kernel launch reported a CUDA error."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status}")
+
+
+def route_counts() -> dict:
+    """The inverse kernel's launches by route (``registers``, ``cluster``)
+    that the trace registry counted since its last reset."""
+    c = trace.snapshot()["counters"]
+    return {route: c.get(f"inv.launches.{route}", 0)
+            for route in ("registers", "cluster")}
+
+
+def launch_counts() -> dict:
+    """Launches of each hand-written kernel that the trace registry counted
+    since its last reset: ``cinv`` (both routes), ``taylor``
+    (``cgemm_ps_c64``) and ``taylor_chunks`` (``ps_chunks_c64``)."""
+    c = trace.snapshot()["counters"]
+    return {"cinv": sum(route_counts().values()),
+            "taylor": c.get("taylor.gemm_launches", 0),
+            "taylor_chunks": c.get("taylor.chunk_launches", 0)}

@@ -22,7 +22,7 @@ import math
 
 import numpy as np
 
-from . import grating as grating_mod
+from . import grating as grating_mod, trace
 from .hexgrid import HexGridSet
 from .units import nm, um, pi
 
@@ -87,6 +87,7 @@ def hexagonal_grid(n, radius, fourfold_symmetry=True):
     return np.stack([x[inside], y[inside]], axis=1)
 
 
+@trace.traced("assembly.centre_picks")
 def design_center(hgs, source_distance, radius, wavelength=WAVELENGTH):
     """Assign each hex site the HexGridSet index matching the target phase
     (reference ``design_collimator.py:120-137``).  Returns
@@ -105,9 +106,11 @@ def design_center(hgs, source_distance, radius, wavelength=WAVELENGTH):
     # and verified there by plotting the stitched near-field phase)
     phases = (target_phase(r, source_distance, wavelength) + pi)
     idx = np.array([hgs.pick_from_phase(p) for p in phases], dtype=float)
+    trace.count("assembly.centre_sites", len(idx))
     return np.column_stack([xy, idx])
 
 
+@trace.traced("assembly.centre_pillars")
 def make_center_xyrra_list(hgs, lens_center_summary):
     """Expand center sites to pillars (reference
     ``design_collimator.py:139-146``)."""
@@ -121,6 +124,7 @@ def make_center_xyrra_list(hgs, lens_center_summary):
                             np.zeros_like(r)])
 
 
+@trace.traced("assembly.rings")
 def design_periphery(collections, source_distance, radius,
                      wavelength=WAVELENGTH):
     """Ring layout of the lens periphery, as one vectorized pass: the
@@ -174,6 +178,7 @@ def design_periphery(collections, source_distance, radius,
             "num_around_circle_list": per_collection_count[which]}
 
 
+@trace.traced("assembly.periphery_pillars")
 def make_periphery_xyrra_list(lens_periphery_summary, progress=False):
     """Instantiate every periphery pillar: per ring, interpolate the unit
     cell at the ring's period, dedup pillars crossing the radial periodic
@@ -223,6 +228,7 @@ def make_periphery_xyrra_list(lens_periphery_summary, progress=False):
     return np.concatenate(pieces, axis=0) if pieces else np.zeros((0, 5))
 
 
+@trace.traced("assembly.make_design")
 def make_design(collections, source_distance, radius, hgs,
                 make_xyrra_list=False, wavelength=WAVELENGTH):
     """Full round-lens design: periphery rings + hex center (reference
@@ -260,6 +266,7 @@ def make_design(collections, source_distance, radius, hgs,
             xyrra_list = np.vstack((center_xyrra_list, periphery_xyrra_list))
         else:
             xyrra_list = center_xyrra_list
+        trace.count("assembly.pillars", len(xyrra_list))
         return (lens_periphery_summary, lens_center_summary, r_for_switch,
                 xyrra_list)
     return lens_periphery_summary, lens_center_summary, r_for_switch

@@ -27,6 +27,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from . import trace
 from .materials import resolve_indices
 from .solver import basis, cpx, orders as ordmod, rcwa
 from .solver.epsilon import (ellipse_structure_toeplitz_traced,
@@ -167,6 +168,7 @@ def _fom_inputs(g, target_wavelength, numG, terms, dtype):
             (eps_p, eps_g, lam, ux, ngs, cth, w))
 
 
+@trace.traced("engine.fom_eval")
 def _fom_eval(xyrra, mx, my, i0, tgt, Lx, Ly, h, eps_p, eps_g, lam, ux,
               ng_now, cos_theta, weights, *, N, Dx, Dy, n_slabs,
               taylor_terms, inphase, small_u, fff, hermitian_eps):
@@ -339,6 +341,7 @@ def _direction_grid(ux_min, ux_max, uy_min, uy_max, u_steps):
     return ux_grid[inside], uy_grid[inside]
 
 
+@trace.traced("characterize.sweep")
 def characterize_grating(g, ux_min, ux_max, uy_min, uy_max, u_steps: int,
                          wavelength, numG: int, just_normal: bool = False,
                          convert_to_xy: bool = True,

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import units as nu
+from . import trace, units as nu
 from .engine import _device
 from .solver import cpx
 from .units import pi
@@ -149,6 +149,7 @@ def _angular_power(fftEx, fftEy, fftHx, fftHy, ux_list, uy_list,
     return P * 2
 
 
+@trace.traced("farfield.farfield")
 def farfield(Ex, Ey, Hx, Hy, xp_list, yp_list, wavelength, n_glass, *,
              device="cuda"):
     """fftshift + 2-D FFT of each aperture field on ``device`` (CUDA
@@ -233,6 +234,7 @@ def farfield_big(Ex, Ey, Hx, Hy, xp_list, yp_list, wavelength, n_glass,
     return P, total_P, ux, uy, dux, duy
 
 
+@trace.traced("farfield.focal_metrics")
 def focal_metrics(P, ux, uy, dux, duy, total_P, power_through_lens,
                   spot_radius_u=None):
     """Focusing diagnostics: peak direction, encircled power within

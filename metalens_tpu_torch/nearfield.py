@@ -37,7 +37,7 @@ import math
 import numpy as np
 import torch
 
-from . import units as nu
+from . import trace, units as nu
 from .characterize import interp_weights, interp_gather
 from .engine import _device
 from .geometry import good_fft_number
@@ -59,6 +59,7 @@ def _region_stats(mask, a0, a1, a2):
     mn = torch.where(m, stack, inf).amin(dim=(1, 2))
     mx = torch.where(m, stack, -inf).amax(dim=(1, 2))
     cnt = mask.sum().to(mn.dtype)
+    trace.count("nearfield.host_reads")
     return torch.cat([cnt[None], mn, mx]).cpu().numpy()
 
 
@@ -353,6 +354,7 @@ def _default_aperture_pts(wavelength, lens_max_r):
     return np.linspace(-lens_max_r, lens_max_r, num=num)
 
 
+@trace.traced("nearfield.build")
 def build_nearfield(source_x, source_y, source_z, source_pol, wavelength,
                     lens_periphery_summary, lens_center_summary, hexgridset,
                     x_pts=None, y_pts=None,
@@ -404,51 +406,54 @@ def build_nearfield(source_x, source_y, source_z, source_pol, wavelength,
     k_glass = 2 * pi * n_glass / wavelength
     kvac = 2 * pi / wavelength
 
-    X, Y = (p.contiguous() for p in torch.meshgrid(
-        _tab(x_pts, device), _tab(y_pts, device), indexing="ij"))
-
     plane_wave = source_z == -inf
     if plane_wave:
         assert source_pol != "z"
     pol_vector = {"x": [1, 0, 0], "y": [0, 1, 0], "z": [0, 0, 1]}[source_pol]
     H_coef = nu.c0 * (2 * pi / wavelength) ** 2 * dipole_moment / (4 * pi)
-    (which_gc, in_center, uxp, uyp, xp, yp, grating_period, lateral_period,
-     cosr, sinr, ux, uy, eikr_periph, H_xp_weight, H_yp_weight,
-     dipole_field_Hx, dipole_field_Hy, local_power_z) = _geometry_planes(
-        X, Y, *_ring_tables(lens_periphery_summary, device), lens_max_r,
-        source_x, source_y,
-        0.0 if plane_wave else source_z, kvac, pol_vector, H_coef,
-        dipole_moment, have_periphery, plane_wave, cdt)
+    with trace.span("nearfield.geometry"):
+        X, Y = (p.contiguous() for p in torch.meshgrid(
+            _tab(x_pts, device), _tab(y_pts, device), indexing="ij"))
+        (which_gc, in_center, uxp, uyp, xp, yp, grating_period,
+         lateral_period, cosr, sinr, ux, uy, eikr_periph, H_xp_weight,
+         H_yp_weight, dipole_field_Hx, dipole_field_Hy,
+         local_power_z) = _geometry_planes(
+            X, Y, *_ring_tables(lens_periphery_summary, device), lens_max_r,
+            source_x, source_y,
+            0.0 if plane_wave else source_z, kvac, pol_vector, H_coef,
+            dipole_moment, have_periphery, plane_wave, cdt)
 
     Exp, Eyp, Hxp, Hyp = (torch.zeros(X.shape, dtype=cdt, device=device)
                           for _ in range(4))
 
     # ---- periphery accumulation: one loop over the orders per collection
-    for gc_index, gc in enumerate(gratingcollection_list):
-        all_orders = sorted({(e["ox"], e["oy"]) for g in gc.grating_list
-                             for e in g.data})
-        bounds = gc.interpolator_bounds
-        gc_mask = which_gc == gc_index
-        stats = _region_stats(gc_mask, uxp, uyp, grating_period)
-        if stats[0] == 0:
-            continue
-        _check_bounds(stats, (("ux", bounds[0], bounds[1]),
-                              ("uy", bounds[2], bounds[3]),
-                              ("grating_period", bounds[4], bounds[5])))
-        pts = torch.stack([uxp.ravel(), uyp.ravel(), grating_period.ravel()],
-                          dim=1)
-        values_all, grids = _stack_order_tables(
-            _tables_on(gc, device), wavelength_in_nm, all_orders,
-            ("ampfy", "ampfx"))
-        counts = _accumulate_orders(
-            values_all, all_orders, grids, pts, gc_mask, uxp, uyp,
-            2 * pi / grating_period, 2 * pi / lateral_period, xp, yp, kvac,
-            k_glass, n_glass, H_xp_weight, H_yp_weight,
-            (Exp, Eyp, Hxp, Hyp))
-        if progress:
-            for (ox, oy), cnt in zip(all_orders, counts.tolist()):
-                print(f"diffraction order ({ox},{oy}) of gc {gc_index}; "
-                      f"applies at {cnt} points", flush=True)
+    with trace.span("nearfield.periphery"):
+        for gc_index, gc in enumerate(gratingcollection_list):
+            all_orders = sorted({(e["ox"], e["oy"]) for g in gc.grating_list
+                                 for e in g.data})
+            bounds = gc.interpolator_bounds
+            gc_mask = which_gc == gc_index
+            stats = _region_stats(gc_mask, uxp, uyp, grating_period)
+            if stats[0] == 0:
+                continue
+            _check_bounds(stats, (("ux", bounds[0], bounds[1]),
+                                  ("uy", bounds[2], bounds[3]),
+                                  ("grating_period", bounds[4], bounds[5])))
+            pts = torch.stack([uxp.ravel(), uyp.ravel(),
+                               grating_period.ravel()], dim=1)
+            values_all, grids = _stack_order_tables(
+                _tables_on(gc, device), wavelength_in_nm, all_orders,
+                ("ampfy", "ampfx"))
+            counts = _accumulate_orders(
+                values_all, all_orders, grids, pts, gc_mask, uxp, uyp,
+                2 * pi / grating_period, 2 * pi / lateral_period, xp, yp,
+                kvac, k_glass, n_glass, H_xp_weight, H_yp_weight,
+                (Exp, Eyp, Hxp, Hyp))
+            if progress:
+                trace.count("nearfield.host_reads")
+                for (ox, oy), cnt in zip(all_orders, counts.tolist()):
+                    print(f"diffraction order ({ox},{oy}) of gc "
+                          f"{gc_index}; applies at {cnt} points", flush=True)
 
     # periphery air phase and rotation back to the lab frame (reference
     # nearfield.py:333-347)
@@ -459,77 +464,83 @@ def build_nearfield(source_x, source_y, source_z, source_pol, wavelength,
     # ---- centre accumulation ----
     # skip the whole block (site lookup and the loop over orders) when this
     # aperture slab holds no centre points, as the periphery loop does
-    run_center = (lens_center_summary is not None
-                  and len(lens_center_summary) > 0)
-    if run_center:
-        stats = _region_stats(in_center, ux, uy, ux)
-        run_center = stats[0] > 0
-    if run_center:
-        summary = np.asarray(lens_center_summary)
-        site_xy = _tab(summary[:, 0:2], device)
-        pitch = hexgridset.sep
-        table, n1_min, n2_min = _hex_site_table(summary, pitch, device)
-        rows, found = _nearest_center_site(X, Y, table, n1_min, n2_min,
-                                           pitch, site_xy)
-        miss = torch.nonzero(in_center & ~found)
-        if len(miss):
-            # a centre point whose 4x4 analytic candidate window holds no
-            # stored site (possible in the seam margin near lens_max_r):
-            # brute-force the few offenders on the host so they get the
-            # TRUE nearest site, the reference's global cKDTree lookup
-            # (reference nearfield.py:363-367), not site 0 with a wrong
-            # off-centre phase
-            i, j = miss[:, 0], miss[:, 1]
-            rows[i, j] = torch.as_tensor(_nearest_site_brute(
-                X[i, j].cpu().numpy(), Y[i, j].cpu().numpy(),
-                summary[:, 0:2]), device=device)
-        cell_center_x = site_xy[rows, 0]
-        cell_center_y = site_xy[rows, 1]
-        which_grating = _tab(summary[:, 2], device)[rows]
+    with trace.span("nearfield.centre"):
+        run_center = (lens_center_summary is not None
+                      and len(lens_center_summary) > 0)
+        if run_center:
+            stats = _region_stats(in_center, ux, uy, ux)
+            run_center = stats[0] > 0
+        if run_center:
+            summary = np.asarray(lens_center_summary)
+            site_xy = _tab(summary[:, 0:2], device)
+            pitch = hexgridset.sep
+            table, n1_min, n2_min = _hex_site_table(summary, pitch, device)
+            rows, found = _nearest_center_site(X, Y, table, n1_min, n2_min,
+                                               pitch, site_xy)
+            miss = torch.nonzero(in_center & ~found)
+            trace.count("nearfield.host_reads")
+            if len(miss):
+                # a centre point whose 4x4 analytic candidate window holds
+                # no stored site (possible in the seam margin near
+                # lens_max_r): brute-force the few offenders on the host so
+                # they get the TRUE nearest site, the reference's global
+                # cKDTree lookup (reference nearfield.py:363-367), not site
+                # 0 with a wrong off-centre phase
+                i, j = miss[:, 0], miss[:, 1]
+                trace.count("nearfield.host_reads", 2)
+                rows[i, j] = torch.as_tensor(_nearest_site_brute(
+                    X[i, j].cpu().numpy(), Y[i, j].cpu().numpy(),
+                    summary[:, 0:2]), device=device)
+            cell_center_x = site_xy[rows, 0]
+            cell_center_y = site_xy[rows, 1]
+            which_grating = _tab(summary[:, 2], device)[rows]
 
-        all_orders = sorted({(e["ox"], e["oy"])
-                             for g in hexgridset.grating_list
-                             for e in g.data})
-        x_period = hexgridset.grating_list[0].grating_period
-        y_period = hexgridset.grating_list[0].lateral_period
-        b = hexgridset.interpolator_bounds
-        _check_bounds(stats, (("ux", b[0], b[1]), ("uy", b[2], b[3])))
-        pts = torch.stack([ux.ravel(), uy.ravel(), which_grating.ravel()],
-                          dim=1)
+            all_orders = sorted({(e["ox"], e["oy"])
+                                 for g in hexgridset.grating_list
+                                 for e in g.data})
+            x_period = hexgridset.grating_list[0].grating_period
+            y_period = hexgridset.grating_list[0].lateral_period
+            b = hexgridset.interpolator_bounds
+            _check_bounds(stats, (("ux", b[0], b[1]), ("uy", b[2], b[3])))
+            pts = torch.stack([ux.ravel(), uy.ravel(),
+                               which_grating.ravel()], dim=1)
 
-        Exc, Eyc, Hxc, Hyc = (torch.zeros(X.shape, dtype=cdt, device=device)
-                              for _ in range(4))
-        values_all, grids = _stack_order_tables(
-            _tables_on(hexgridset, device), wavelength_in_nm, all_orders,
-            ("ampfy", "ampfx"))
-        counts = _accumulate_orders(
-            values_all, all_orders, grids, pts, in_center, ux, uy,
-            2 * pi / x_period, 2 * pi / y_period, X - cell_center_x,
-            Y - cell_center_y, kvac, k_glass, n_glass,
-            dipole_field_Hy, dipole_field_Hx, (Exc, Eyc, Hxc, Hyc))
-        if progress:
-            for (ox, oy), cnt in zip(all_orders, counts.tolist()):
-                print(f"diffraction order ({ox},{oy}) of center; applies "
-                      f"at {cnt} points", flush=True)
-        if source_z > -inf:
-            air_dist = torch.sqrt((cell_center_x - source_x) ** 2
-                                  + (cell_center_y - source_y) ** 2
-                                  + source_z ** 2)
-            eikr = torch.polar(torch.ones_like(air_dist),
-                               kvac * air_dist).to(cdt)
-            Exc, Eyc, Hxc, Hyc = (Exc * eikr, Eyc * eikr, Hxc * eikr,
-                                  Hyc * eikr)
-        Ex += Exc
-        Ey += Eyc
-        Hx += Hxc
-        Hy += Hyc
-        in_lens = (which_gc != -1) | in_center
-    else:
-        in_lens = which_gc != -1
+            Exc, Eyc, Hxc, Hyc = (torch.zeros(X.shape, dtype=cdt,
+                                              device=device)
+                                  for _ in range(4))
+            values_all, grids = _stack_order_tables(
+                _tables_on(hexgridset, device), wavelength_in_nm, all_orders,
+                ("ampfy", "ampfx"))
+            counts = _accumulate_orders(
+                values_all, all_orders, grids, pts, in_center, ux, uy,
+                2 * pi / x_period, 2 * pi / y_period, X - cell_center_x,
+                Y - cell_center_y, kvac, k_glass, n_glass,
+                dipole_field_Hy, dipole_field_Hx, (Exc, Eyc, Hxc, Hyc))
+            if progress:
+                trace.count("nearfield.host_reads")
+                for (ox, oy), cnt in zip(all_orders, counts.tolist()):
+                    print(f"diffraction order ({ox},{oy}) of center; "
+                          f"applies at {cnt} points", flush=True)
+            if source_z > -inf:
+                air_dist = torch.sqrt((cell_center_x - source_x) ** 2
+                                      + (cell_center_y - source_y) ** 2
+                                      + source_z ** 2)
+                eikr = torch.polar(torch.ones_like(air_dist),
+                                   kvac * air_dist).to(cdt)
+                Exc, Eyc, Hxc, Hyc = (Exc * eikr, Eyc * eikr, Hxc * eikr,
+                                      Hyc * eikr)
+            Ex += Exc
+            Ey += Eyc
+            Hx += Hxc
+            Hy += Hyc
+            in_lens = (which_gc != -1) | in_center
+        else:
+            in_lens = which_gc != -1
 
     power_passing_through_lens = float(
         torch.where(in_lens, local_power_z, 0.0).sum()
         * (x_pts[1] - x_pts[0]) * (y_pts[1] - y_pts[0]))
+    trace.count("nearfield.host_reads")
 
     return Ex, Ey, Hx, Hy, x_pts, y_pts, power_passing_through_lens, n_glass
 

@@ -30,6 +30,7 @@ import random
 import numpy as np
 import torch
 
+from . import trace
 from .engine import (_device, fom_batch_fn, fom_of_grating,
                      fom_value_and_grad, static_envelope)
 from .grating import (GratingCollection, min_diameter, min_distance,
@@ -38,10 +39,6 @@ from .optimize_fused import optimize_fused, optimize2_fused
 from .solver import cpx
 from .solver.fom import DEFAULT_FOM_TERMS
 from .units import degree, inf, nm, pi
-
-# probe batches evaluated since the last reset (chip_smoke.py reads and
-# resets it)
-probe_batches = 0
 
 
 # --------------------------------------------------------------------------
@@ -62,7 +59,6 @@ class _BatchedProbe:
                                 device=device, dtype=dtype)
 
     def __call__(self, candidates):
-        global probe_batches
         candidates = list(candidates)
         assert candidates
         out = []
@@ -70,7 +66,7 @@ class _BatchedProbe:
             chunk = candidates[i:i + self.B]
             batch = np.stack(chunk + [chunk[-1]] * (self.B - len(chunk)))
             out.append(self._fn(batch)[:len(chunk)].cpu().numpy())
-            probe_batches += 1
+            trace.count("optimize.probe_batches")
         return np.concatenate(out)
 
 

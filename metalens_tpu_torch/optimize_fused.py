@@ -59,6 +59,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import trace
 from .engine import (_device, _fom_eval, _fom_inputs, _order_bounds,
                      _order_tensors, apply_static_override)
 from .grating import min_diameter, min_distance, validate
@@ -70,6 +71,7 @@ from .units import degree, nm, pi
 # exact on-device validate()
 # --------------------------------------------------------------------------
 
+@trace.traced("fused.feasible")
 def feasible_traced(xyrra, Lx, Ly, min_r, min_gap, sim=None,
                     how_similar=None, num_points: int = 100,
                     margin: float = 0.0):
@@ -234,27 +236,31 @@ def _cd_run(N, Dx, Dy, n_slabs, taylor_terms, inphase, fff, hermitian_eps,
         fom_now = fom_of(x[None])[0]
         stalled, rounds = False, 0
         while not stalled and rounds < max_rounds:
-            perm = draws.permutation(nC).to(dev)
-            visit = (perm[:, None] * 2 + pair).reshape(-1)
+            with trace.span("fused.round"):
+                perm = draws.permutation(nC).to(dev)
+                visit = (perm[:, None] * 2 + pair).reshape(-1)
 
-            cands = x[None] + dirs                       # (nD, nE, 5)
-            foms = fom_of(cands)                         # (nD,)
-            ok = feas_of(cands) & (foms >= fom_now)
-            ok_v = ok[visit]
-            any_ok = ok_v.any()
-            d_idx = visit.gather(0, ok_v.to(torch.int32).argmax().reshape(1))
-            direction = dirs.index_select(0, d_idx)[0]
-            f1 = foms.index_select(0, d_idx)[0]
+                cands = x[None] + dirs                       # (nD, nE, 5)
+                foms = fom_of(cands)                         # (nD,)
+                ok = feas_of(cands) & (foms >= fom_now)
+                ok_v = ok[visit]
+                any_ok = ok_v.any()
+                d_idx = visit.gather(
+                    0, ok_v.to(torch.int32).argmax().reshape(1))
+                direction = dirs.index_select(0, d_idx)[0]
+                f1 = foms.index_select(0, d_idx)[0]
 
-            walk = x[None] + ks[:, None, None] * direction
-            wfoms = fom_of(walk)
-            fom_w, kept = _ratchet_scan(f1, wfoms, feas_of(walk))
+                walk = x[None] + ks[:, None, None] * direction
+                wfoms = fom_of(walk)
+                fom_w, kept = _ratchet_scan(f1, wfoms, feas_of(walk))
 
-            x_new = x + kept.to(rdt) * direction
-            x = torch.where(any_ok, x_new, x)
-            fom_now = torch.where(any_ok, fom_w, fom_now)
-            rounds += 1
-            stalled = not bool(any_ok)     # the round's one host read
+                x_new = x + kept.to(rdt) * direction
+                x = torch.where(any_ok, x_new, x)
+                fom_now = torch.where(any_ok, fom_w, fom_now)
+                rounds += 1
+                stalled = not bool(any_ok)     # the round's one host read
+            trace.count("fused.rounds")
+            trace.count("fused.host_reads")
         return x, fom_now, stalled, rounds
 
     return run
@@ -287,6 +293,7 @@ def _member_inputs(g, target_wavelength, numG, terms, static_override,
     return config, trust, cell, rdt
 
 
+@trace.traced("fused.call")
 def optimize_fused(mygrating_start, target_wavelength=None, similar_to=None,
                    how_similar=None, numG=50, terms=None, seed=0,
                    max_rounds_per_dispatch=64, verbose=True,
@@ -332,12 +339,15 @@ def optimize_fused(mygrating_start, target_wavelength=None, similar_to=None,
         if stalled:
             break
     g.xyrra_list = x.cpu().numpy().astype(np.float64)
+    trace.count("fused.host_reads")
+    trace.count("fused.accepted", total_rounds - 1)
     g.standardize()
     assert validate(g, similar_to=similar_to, how_similar=how_similar)
     if verbose:
         print(f"#optimize_fused: fom={float(fom_now):.6f} "
               f"after {total_rounds - 1} accepted moves")
         print("mygrating=" + repr(g), flush=True)
+        trace.count("fused.host_reads")
     return g
 
 
@@ -366,25 +376,28 @@ def _rp_run(N, Dx, Dy, n_slabs, taylor_terms, inphase, fff, hermitian_eps,
         fom_now = fom_of(x[None])[0]
         accepted = torch.zeros((), dtype=torch.int32, device=dev)
         for _ in range(int(attempts)):
-            direction = step_ceiling * draws.uniform(x.shape).to(dev)
-            # the proposal (step 1) and the ratchet walk's steps 2..max in
-            # one batch
-            walk = x[None] + ks[:, None, None] * direction
-            afoms = fom_of(walk)
-            feas = feasible_traced(walk, Lx, Ly, min_r, min_gap, sim=sim,
-                                   how_similar=how_similar, margin=1e-5)
-            f1 = afoms[0]
-            ok1 = feas[0] & (f1 >= fom_now)
-            fom_w, kept = _ratchet_scan(f1, afoms[1:], feas[1:])
+            with trace.span("fused.attempt"):
+                direction = step_ceiling * draws.uniform(x.shape).to(dev)
+                # the proposal (step 1) and the ratchet walk's steps 2..max
+                # in one batch
+                walk = x[None] + ks[:, None, None] * direction
+                afoms = fom_of(walk)
+                feas = feasible_traced(walk, Lx, Ly, min_r, min_gap, sim=sim,
+                                       how_similar=how_similar, margin=1e-5)
+                f1 = afoms[0]
+                ok1 = feas[0] & (f1 >= fom_now)
+                fom_w, kept = _ratchet_scan(f1, afoms[1:], feas[1:])
 
-            x = torch.where(ok1, x + kept.to(rdt) * direction, x)
-            fom_now = torch.where(ok1, fom_w, fom_now)
-            accepted = accepted + ok1.to(torch.int32)
+                x = torch.where(ok1, x + kept.to(rdt) * direction, x)
+                fom_now = torch.where(ok1, fom_w, fom_now)
+                accepted = accepted + ok1.to(torch.int32)
+            trace.count("fused.attempts")
         return x, fom_now, int(attempts), accepted
 
     return run
 
 
+@trace.traced("fused.call")
 def optimize2_fused(mygrating_start, target_wavelength=None, attempts=200,
                     similar_to=None, how_similar=None, numG=50, terms=None,
                     seed=0, verbose=True, static_override=None, min_gap=None,
@@ -413,12 +426,16 @@ def optimize2_fused(mygrating_start, target_wavelength=None, attempts=200,
         draws, attempts, torch.as_tensor(step_ceiling, dtype=rdt,
                                          device=device), *cell)
     g.xyrra_list = x.cpu().numpy().astype(np.float64)
+    trace.count("fused.host_reads")
     g.standardize()
     assert validate(g, similar_to=similar_to, how_similar=how_similar)
+    if trace.enabled():
+        trace.count("fused.accepted", int(accepted))
     if verbose:
         print(f"#optimize2_fused: fom={float(fom_now):.6f} after {tried} "
               f"attempts ({int(accepted)} accepted)")
         print("mygrating=" + repr(g), flush=True)
+        trace.count("fused.host_reads", 2)
     return g
 
 

@@ -26,6 +26,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..engine import _device
 
 
@@ -60,6 +61,7 @@ class Mesh:
 
     # ---- collectives (identities without a process group) ----
 
+    @trace.traced("parallel.all_reduce")
     def all_reduce(self, t: torch.Tensor, op=None) -> torch.Tensor:
         """Elementwise sum (or ``op``) of ``t`` over the ranks, as a new
         tensor on the mesh's device."""
@@ -73,6 +75,7 @@ class Mesh:
         t = torch.tensor([float(flag)], device=self.device)
         return bool(self.all_reduce(t, dist.ReduceOp.MAX)[0] > 0)
 
+    @trace.traced("parallel.all_gather")
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` (same shape on every rank) concatenated along
         dim 0 in rank order."""

@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..solver import basis, cpx, orders as ordmod, rcwa
 from ..solver.fom import term_score
 
@@ -198,6 +199,7 @@ def sharded_characterize_amps(mesh, orders, n_slabs, taylor_terms=12,
     shared = None if np.ndim(orders) == 0 else np.asarray(orders)
     host, grouping = _HostInputs(), _Grouping(mesh.device)
 
+    @trace.traced("parallel.sweep")
     def amps(xyrra, Lx, Ly, h, eps_p, eps_g, lam, ux, uy):
         B = len(xyrra)
         lo, hi = mesh.block(B)

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from . import inv as _inv
 
 
@@ -46,13 +47,32 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _count_upload(t: torch.Tensor) -> None:
+    trace.count("rcwa.h2d_copies")
+    trace.count("rcwa.h2d_bytes", t.nbytes)
+
+
+def to_device(src, dtype, device) -> torch.Tensor:
+    """``src`` (an array, a list, a number or a tensor) as a tensor of
+    ``dtype`` (None: its own) on ``device``.  The cell solve's copies of
+    host data go through this function or :func:`upload`, which count each
+    copy to a CUDA device in the trace registry as ``rcwa.h2d_copies`` and
+    ``rcwa.h2d_bytes``."""
+    t = torch.as_tensor(src, dtype=dtype, device=device)
+    if t.is_cuda and not (torch.is_tensor(src) and src.is_cuda):
+        _count_upload(t)
+    return t
+
+
 def upload(array, device, dtype: torch.dtype) -> torch.Tensor:
     """A host array on ``device``: on CUDA through pinned memory and a
     non-blocking copy, so the upload does not synchronize the stream."""
     t = torch.as_tensor(array, dtype=dtype)
     if torch.device(device).type != "cuda":
         return t
-    return t.pin_memory().to(device, non_blocking=True)
+    t = t.pin_memory().to(device, non_blocking=True)
+    _count_upload(t)
+    return t
 
 
 def real_dtype(dtype: torch.dtype) -> torch.dtype:

@@ -20,6 +20,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import trace
 from . import cpx
 from .special import j1_over_x_from_sq
 
@@ -120,11 +121,11 @@ def ellipse_structure_toeplitz(orders, grating_period, lateral_period,
     area = grating_period * lateral_period
     dmx_u, dmy_u, gather = _distinct_differences(orders)
     kw = dict(dtype=xyrra.dtype, device=xyrra.device)
-    gx = torch.as_tensor(dmx_u, **kw) * (TWO_PI / grating_period)
-    gy = torch.as_tensor(dmy_u, **kw) * (TWO_PI / lateral_period)
+    gx = cpx.to_device(dmx_u, **kw) * (TWO_PI / grating_period)
+    gy = cpx.to_device(dmy_u, **kw) * (TWO_PI / lateral_period)
     S_flat = ellipse_shape_sum(gx, gy, xyrra, area, small_arg_only)
     zero_flat = _at_zero(gx, gy)
-    idx = torch.as_tensor(gather, device=xyrra.device)
+    idx = cpx.to_device(gather, None, xyrra.device)
     return S_flat[..., idx], zero_flat[idx]
 
 
@@ -137,6 +138,7 @@ def dense_difference_grid(Dx: int, Dy: int):
     return DMX.ravel().astype(np.float64), DMY.ravel().astype(np.float64)
 
 
+@trace.watch_cache
 @functools.lru_cache(maxsize=8)
 def dense_grid_tensors(Dx: int, Dy: int, dtype: torch.dtype,
                        device: torch.device):

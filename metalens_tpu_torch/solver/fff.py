@@ -22,6 +22,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import trace
 from . import cpx
 from .epsilon import (_distinct_differences, dense_difference_grid,
                       ellipse_structure_toeplitz, toeplitz_from_structure,
@@ -40,6 +41,7 @@ def _raster_basis_for(dmx_u, dmy_u, R: int):
             np.sin(ang) / (R * R))
 
 
+@trace.watch_cache
 @functools.lru_cache(maxsize=4)
 def _raster_and_basis(orders_key, R: int):
     """Raster and DFT basis over the distinct differences of a static order
@@ -92,11 +94,11 @@ def _normal_field(xyrra, X, Y, Lx, Ly):
 
 def _projector_blocks(xyrra, fx, fy, dft_re, dft_im, idx, Lx, Ly):
     kw = dict(dtype=xyrra.dtype, device=xyrra.device)
-    X = torch.as_tensor(fx, **kw) * Lx
-    Y = torch.as_tensor(fy, **kw) * Ly
+    X = cpx.to_device(fx, **kw) * Lx
+    Y = cpx.to_device(fy, **kw) * Ly
     nx_acc, ny_acc = _normal_field(xyrra, X, Y, Lx, Ly)
-    basis_re = torch.as_tensor(dft_re, **kw)
-    basis_im = torch.as_tensor(dft_im, **kw)
+    basis_re = cpx.to_device(dft_re, **kw)
+    basis_im = cpx.to_device(dft_im, **kw)
 
     def project(field):
         return torch.complex(field @ basis_re, field @ basis_im)[..., idx]
@@ -112,11 +114,12 @@ def normal_projector_toeplitz(orders, grating_period, lateral_period, xyrra,
     everywhere): at every raster point, the normal of the nearest pillar."""
     orders_key = tuple(map(tuple, np.asarray(orders).tolist()))
     fx, fy, dft_re, dft_im, gather = _raster_and_basis(orders_key, R)
-    idx = torch.as_tensor(gather, device=xyrra.device)
+    idx = cpx.to_device(gather, None, xyrra.device)
     return _projector_blocks(xyrra, fx, fy, dft_re, dft_im, idx,
                              grating_period, lateral_period)
 
 
+@trace.watch_cache
 @functools.lru_cache(maxsize=4)
 def _dense_raster_and_basis_tensors(Dx: int, Dy: int, R: int,
                                     dtype: torch.dtype,

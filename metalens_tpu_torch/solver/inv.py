@@ -24,15 +24,10 @@ import ctypes
 
 import torch
 
-from .. import _cuda
+from .. import _cuda, trace
 
 MAX_N = 256
 REGISTER_MAX_N = 128      # cinv.cu's register route; clusters above
-
-# kernel launches since the last reset, in all and by route (chip_smoke.py
-# reads and resets them)
-launches = 0
-route_launches = {"registers": 0, "cluster": 0}
 
 _SIGNATURES = {
     "cinv_c64": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -49,7 +44,6 @@ def inv_cuda(A: torch.Tensor) -> torch.Tensor:
     """Inverse of each (n, n) complex64 matrix of a contiguous CUDA batch
     (..., n, n), n <= 256, by the hand-written kernel.  Forward only: a
     gradient goes through :class:`InverseFn` (:func:`inv`)."""
-    global launches
     if not A.is_cuda:
         raise ValueError(f"inv_cuda needs a CUDA tensor, got {A.device}")
     if A.dtype != torch.complex64:
@@ -72,8 +66,8 @@ def inv_cuda(A: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(A.device).cuda_stream
         status = lib.cinv_c64(A.data_ptr(), out.data_ptr(), n, batch, stream)
     _cuda.check(status, "cinv_c64")
-    launches += 1
-    route_launches["cluster" if n > REGISTER_MAX_N else "registers"] += 1
+    trace.count("inv.launches.cluster" if n > REGISTER_MAX_N
+                else "inv.launches.registers")
     return out
 
 

@@ -28,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import trace
 from . import basis, cpx, taylor
 from .epsilon import ellipse_layer_toeplitz
 
@@ -330,8 +331,8 @@ def _medium_blocks(Kx, Ky, eps, branch_eps):
     """(we, we_inv) of the uniform medium eps: a python number, or a (B,)
     complex tensor (one medium per cell)."""
     if torch.is_tensor(eps) and eps.ndim > 0:
-        eps = eps.to(device=Kx.device,
-                     dtype=cpx.to_complex(Kx.dtype)).reshape(-1, 1)
+        eps = cpx.to_device(eps, cpx.to_complex(Kx.dtype),
+                            Kx.device).reshape(-1, 1)
         Kz = basis.kz_norm(Kx, Ky, eps, branch_eps)
         n = cpx.csqrt_posim(eps)
     else:
@@ -375,6 +376,7 @@ def invert_eps(E, hermitian_eps: bool = True):
     return cpx.solve_embed(E, cpx.eye(E.shape[-1], E).expand_as(E))
 
 
+@trace.traced("rcwa.eps")
 def build_layer_eps(orders, grating_period, lateral_period, xyrra,
                     eps_pillar, eps_small_u: bool = False, fff: bool = False,
                     hermitian_eps: bool = True):
@@ -398,7 +400,7 @@ def _batch_col(x, B: int, like: torch.Tensor):
     if isinstance(x, numbers.Real):
         x = torch.full((1,), float(x), dtype=like.dtype, device=like.device)
     else:
-        x = torch.as_tensor(x, dtype=like.dtype).to(like.device)
+        x = cpx.to_device(x, like.dtype, like.device)
     return x.reshape(-1, 1).expand(B, 1)
 
 
@@ -417,7 +419,7 @@ def _cell_parts(orders, E, grating_period, lateral_period, cyl_height,
     cell (a wavelength-major characterize batch)."""
     B = E.shape[0]
     rdt = cpx.real_dtype(E.dtype)
-    o = torch.as_tensor(orders).to(device=E.device, dtype=rdt)
+    o = cpx.to_device(orders, rdt, E.device)
     lam = _batch_col(wavelength, B, o) if _per_cell(wavelength) \
         else wavelength
     Kx = _batch_col(ux, B, o) + o[None, :, 0] * (lam / grating_period)
@@ -483,6 +485,7 @@ def cell_smatrix(orders, xyrra, grating_period, lateral_period, cyl_height,
                                  hermitian_eps=hermitian_eps, outputs=outputs)
 
 
+@trace.traced("rcwa.solve")
 def cell_amplitudes_with_eps(orders, E, grating_period, lateral_period,
                              cyl_height, eps_glass, wavelength, ux, uy,
                              c_inc, n_slabs: int, taylor_terms: int = 12,
@@ -510,7 +513,7 @@ def cell_amplitudes_with_eps(orders, E, grating_period, lateral_period,
     n2 = inner.s11.shape[-1]
     I = cpx.eye(n2, inner.s11)
     X0 = cpx.inverse(I - _left_bmul(A.s12, inner.s21))
-    c = torch.as_tensor(c_inc).to(device=E.device, dtype=E.dtype)
+    c = cpx.to_device(c_inc, E.dtype, E.device)
     if c.ndim < 2:
         raise ValueError("c_inc must be (2N, K) or (B, 2N, K)")
     v = X0 @ _left_bmul(A.s11, c)

@@ -31,12 +31,8 @@ import numbers
 
 import torch
 
-from .. import _cuda
-
-# launches of cgemm_ps_c64 and of ps_chunks_c64 since the last reset
-# (chip_smoke.py reads and resets them)
-launches = 0
-chunk_launches = 0
+from .. import _cuda, trace
+from . import cpx
 
 # Paterson-Stockmeyer chunks per series that ps_chunks_c64 holds (r <= 8
 # up to 160 terms)
@@ -79,7 +75,7 @@ def coeff_table(t, terms: int, batch: int, device,
     if isinstance(t, numbers.Real):  # filled in on the device: no upload
         t64 = torch.full((1,), float(t), dtype=torch.float64, device=device)
     else:
-        t64 = torch.as_tensor(t, dtype=torch.float64).to(device)
+        t64 = cpx.to_device(t, torch.float64, device)
     t64 = t64.reshape(-1, 1).expand(batch, 1)
     tp = t64 ** (2 * torch.arange(terms + 1, device=device,
                                   dtype=torch.float64))
@@ -87,6 +83,7 @@ def coeff_table(t, terms: int, batch: int, device,
     return (coeffs[None] * tp[:, None, :]).to(dtype).contiguous()
 
 
+@trace.watch_cache
 @functools.lru_cache(maxsize=16)
 def _series_table(terms: int, device: torch.device) -> torch.Tensor:
     """:func:`series_coefficients` as a float64 (3, terms+1) tensor, made
@@ -226,7 +223,6 @@ def gemm_cuda(A: torch.Tensor, B: torch.Tensor, out: torch.Tensor,
     """out = A B (+ D) for complex64 CUDA (batch, n, n) views with
     row-major matrices (any batch stride; out aliases none of the others):
     one launch of ``cgemm_ps_c64``."""
-    global launches
     views = (A, B, out) if D is None else (A, B, out, D)
     if not out.is_cuda or any(M.shape != out.shape or M.device != out.device
                               or M.dtype != torch.complex64 for M in views):
@@ -241,7 +237,7 @@ def gemm_cuda(A: torch.Tensor, B: torch.Tensor, out: torch.Tensor,
             _batch_stride(out), out.shape[-1], out.shape[0],
             torch.cuda.current_stream(out.device).cuda_stream)
     _cuda.check(status, "cgemm_ps_c64")
-    launches += 1
+    trace.count("taylor.gemm_launches")
 
 
 def _check_coeffs(coeffs: torch.Tensor, batch: int, terms: int, device):
@@ -259,7 +255,6 @@ def chunk_sums_cuda(pows: torch.Tensor, coeffs: torch.Tensor, terms: int,
     """:func:`chunk_sums_reference` for contiguous complex64 CUDA powers
     (batch, s, n, n) and chunks (batch, 3, r, n, n) with the float32 table
     of :func:`coeff_table`: one launch of ``ps_chunks_c64``."""
-    global chunk_launches
     B, n = pows.shape[0], pows.shape[-1]
     if (not pows.is_cuda or out.device != pows.device
             or pows.dtype != torch.complex64 or out.dtype != torch.complex64
@@ -279,7 +274,7 @@ def chunk_sums_cuda(pows: torch.Tensor, coeffs: torch.Tensor, terms: int,
             coeffs.stride(0), terms, r, out.data_ptr(), out.stride(0), n, B,
             torch.cuda.current_stream(out.device).cuda_stream)
     _cuda.check(status, "ps_chunks_c64")
-    chunk_launches += 1
+    trace.count("taylor.chunk_launches")
 
 
 def taylor_factors_cuda(F: torch.Tensor, G: torch.Tensor,

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from metalens_tpu_torch import _cuda, trace
 from metalens_tpu_torch.solver import inv, orders as ordmod, rcwa, taylor
 
 NM = 1e-9
@@ -56,6 +57,12 @@ def _hot_path_calls(device, module, name, numG=25):
     return seen
 
 
+def _launched():
+    """Launches the trace registry counted since its last reset: (inverse,
+    Taylor GEMM, chunk pass)."""
+    return tuple(_cuda.launch_counts().values())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 25, 50, 100, 128, 129, 200, 256])
 def test_inverse_kernel_random(cuda_device, n):
@@ -66,10 +73,10 @@ def test_inverse_kernel_random(cuda_device, n):
     A = (torch.eye(n) + 0.4 * noise / math.sqrt(n)).to(torch.complex64)
     A = A.to(cuda_device)
     route = "cluster" if n > inv.REGISTER_MAX_N else "registers"
-    before, before_route = inv.launches, inv.route_launches[route]
-    W = inv.inv(A)
-    assert inv.launches == before + 1
-    assert inv.route_launches[route] == before_route + 1
+    with trace.collect():
+        W = inv.inv(A)
+        assert _launched()[0] == 1
+        assert _cuda.route_counts()[route] == 1
     eye = torch.eye(n, dtype=A.dtype, device=cuda_device)
     assert (W @ A - eye).abs().max().item() < 5e-5
 
@@ -139,9 +146,9 @@ def test_taylor_kernel_random_batched_t(cuda_device, n, terms):
     F = F.to(torch.complex64).to(cuda_device)
     G = G.to(torch.complex64).to(cuda_device)
     t = torch.tensor([0.3, 0.5, 0.7, 0.9])
-    before = taylor.launches
-    got = taylor.taylor_factors(F, G, t, terms)
-    assert taylor.launches > before
+    with trace.collect():
+        got = taylor.taylor_factors(F, G, t, terms)
+        assert _launched()[1] > 0
     want = taylor.taylor_factors_reference(F, G, t.to(cuda_device), terms)
     for g, w in zip(got, want):
         assert ((g - w).abs().max() / w.abs().max()).item() < 2e-5
@@ -175,9 +182,9 @@ def test_inverse_backward_against_linalg_inv(cuda_device, n):
     ct = torch.view_as_complex(torch.randn(3, n, n, 2, generator=gen))
     A, ct = A.to(cuda_device), ct.to(torch.complex64).to(cuda_device)
     A_k, A_r = A.clone().requires_grad_(), A.clone().requires_grad_()
-    before = inv.launches
-    got, = torch.autograd.grad(inv.inv(A_k), A_k, ct)
-    assert inv.launches == before + 1
+    with trace.collect():
+        got, = torch.autograd.grad(inv.inv(A_k), A_k, ct)
+        assert _launched()[0] == 1
     want, = torch.autograd.grad(torch.linalg.inv(A_r), A_r, ct)
     assert got.dtype == torch.complex64
     assert _max_rel(got, want) < 1e-4
@@ -196,11 +203,11 @@ def test_taylor_backward_against_reference_autograd(cuda_device):
     t = torch.tensor([0.3, 0.5, 0.7, 0.9])
     leaves_k = [M.clone().requires_grad_() for M in (F, G)]
     leaves_r = [M.clone().requires_grad_() for M in (F, G)]
-    before = taylor.launches, taylor.chunk_launches
-    got = torch.autograd.grad(taylor.taylor_factors(*leaves_k, t, terms),
-                              leaves_k, cts)
-    assert taylor.launches > before[0]
-    assert taylor.chunk_launches == before[1] + 1
+    with trace.collect():
+        got = torch.autograd.grad(
+            taylor.taylor_factors(*leaves_k, t, terms), leaves_k, cts)
+        assert _launched()[1] > 0
+        assert _launched()[2] == 1
     want = torch.autograd.grad(
         taylor.taylor_factors_reference(*leaves_r, t.to(cuda_device), terms),
         leaves_r, cts)
@@ -226,18 +233,18 @@ def test_characterize_three_wavelengths_against_plain_versions(cuda_device):
                                       [-312.5, 5., 110., 80., 10.]])
     kw = dict(ux_min=0.2, ux_max=0.5, uy_min=-0.2, uy_max=0.2, u_steps=3,
               wavelength=[450 * NM, 580 * NM, 650 * NM], numG=25)
-    before = inv.launches, taylor.launches, taylor.chunk_launches
-    got = characterize_grating(g, **kw)
-    after = inv.launches, taylor.launches, taylor.chunk_launches
-    assert all(a > b for a, b in zip(after, before))
+    with trace.collect():
+        got = characterize_grating(g, **kw)
+        assert all(a > 0 for a in _launched())
     saved = inv.inv, taylor.taylor_factors
     inv.inv, taylor.taylor_factors = (inv.inv_reference,
                                       taylor.taylor_factors_reference)
     try:
-        want = characterize_grating(g, **kw)
+        with trace.collect():
+            want = characterize_grating(g, **kw)
+            assert _launched() == (0, 0, 0)
     finally:
         inv.inv, taylor.taylor_factors = saved
-    assert (inv.launches, taylor.launches, taylor.chunk_launches) == after
     assert len(got) == len(want) > 0
     assert {e["wavelength_in_nm"] for e in got} == {450.0, 580.0, 650.0}
     worst = 0.0
@@ -385,11 +392,10 @@ def test_sharded_step_on_a_one_rank_nccl_group(cuda_device, tmp_path):
             step = parallel.sharded_fom_and_grad(
                 mesh, p["orders"], p["n_slabs"], tgt, inph,
                 taylor_terms=p["taylor"])
-            before = (inv.launches, taylor.launches)
-            got[dev] = step(*args)
-            if dev == "cuda":
-                assert inv.launches > before[0] and \
-                    taylor.launches > before[1]
+            with trace.collect():
+                got[dev] = step(*args)
+                if dev == "cuda":
+                    assert _launched()[0] > 0 and _launched()[1] > 0
         (f, g), (fr, gr) = got["cuda"], got["cpu"]
         assert f.is_cuda and g.dtype == torch.float32 and g.shape == (4, 2, 5)
         assert gr.dtype == torch.float64
@@ -413,11 +419,11 @@ def test_reciprocity_of_a_lossless_cell_on_cuda(cuda_device):
     xy = torch.as_tensor(np.stack([BASE, BASE]), **kw)
     u = torch.tensor([0.31, -0.31], **kw)
     v = torch.tensor([0.12, -0.12], **kw)
-    before = (inv.launches, taylor.launches)
-    S, Kx, Ky = rcwa.cell_smatrix(orders, xy, LX, LY, H, NT ** 2, NG ** 2,
-                                  LAM, u, v, n_slabs=ns, taylor_terms=terms,
-                                  fff=True)
-    assert inv.launches > before[0] and taylor.launches > before[1]
+    with trace.collect():
+        S, Kx, Ky = rcwa.cell_smatrix(orders, xy, LX, LY, H, NT ** 2,
+                                      NG ** 2, LAM, u, v, n_slabs=ns,
+                                      taylor_terms=terms, fff=True)
+        assert _launched()[0] > 0 and _launched()[1] > 0
     assert S.s11.dtype == torch.complex64 and S.s11.is_cuda
     one = [rcwa.SMatrix(*(x[k:k + 1] for x in S)) for k in (0, 1)]
     res = checks.reciprocity_residuals(

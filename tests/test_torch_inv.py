@@ -13,7 +13,7 @@ import torch
 from metalens_tpu.solver import cpx as jcpx, orders as jord, rcwa as jrcwa
 from metalens_tpu.solver.pallas_inv import inv_pallas
 from metalens_tpu.units import nm
-from metalens_tpu_torch import _cuda
+from metalens_tpu_torch import _cuda, trace
 from metalens_tpu_torch.solver import cpx as tcpx, inv as tinv
 
 torch.set_num_threads(1)
@@ -84,9 +84,11 @@ def test_solve_routes_cpu_to_reference():
     A = (np.eye(n) + 0.4 * (rng.normal(size=(2, n, n))
                             + 1j * rng.normal(size=(2, n, n))) / np.sqrt(n))
     Bm = rng.normal(size=(2, n, 3)) + 1j * rng.normal(size=(2, n, 3))
-    before = tinv.launches
-    X = tcpx.solve(torch.as_tensor(A), torch.as_tensor(Bm)).numpy()
-    assert tinv.launches == before and "cinv" not in _cuda._loaded
+    with trace.collect():
+        X = tcpx.solve(torch.as_tensor(A), torch.as_tensor(Bm)).numpy()
+        counted = trace.snapshot()["counters"]
+    assert not any(k.startswith("inv.launches") for k in counted)
+    assert "cinv" not in _cuda._loaded
     np.testing.assert_allclose(A @ X, Bm, atol=1e-12)
     with pytest.raises(ValueError, match="CUDA"):
         tinv.inv_cuda(torch.as_tensor(A).to(torch.complex64))

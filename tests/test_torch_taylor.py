@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from metalens_tpu.solver import cpx as jcpx, pallas_taylor as jpt
-from metalens_tpu_torch import _cuda
+from metalens_tpu_torch import _cuda, trace
 from metalens_tpu_torch.solver import taylor as ttay
 
 torch.set_num_threads(1)
@@ -95,11 +95,13 @@ def test_cpu_routing_launches_no_kernel():
     """On the CPU the wrapper takes the plain version because the tensor
     lies on the CPU: no library is built or loaded, the count stays 0, and
     the kernel entry refuses a CPU tensor."""
-    before = ttay.launches, ttay.chunk_launches
     rng = np.random.default_rng(2)
     F, G = _rand_fg(rng, 1, 8)
-    ttay.taylor_factors(torch.as_tensor(F), torch.as_tensor(G), 0.5, 8)
-    assert (ttay.launches, ttay.chunk_launches) == before
+    with trace.collect():
+        ttay.taylor_factors(torch.as_tensor(F), torch.as_tensor(G), 0.5, 8)
+        counted = trace.snapshot()["counters"]
+    assert "taylor.gemm_launches" not in counted
+    assert "taylor.chunk_launches" not in counted
     assert "taylor" not in _cuda._loaded
     coeffs = ttay.coeff_table(0.5, 8, 1, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
